@@ -1,6 +1,6 @@
 # Build/packaging entry points (the reference ships a CMake shared lib +
 # three Debian packages, CMakeLists.txt:7 / debian/control:11-31; the
-# TPU-native equivalent is a pip wheel with the ten CLI entry points plus
+# equivalent here is a pip wheel with the ten CLI entry points plus
 # the on-demand-compiled native helper library). See docs/PACKAGING.md.
 
 PYTHON ?= python
@@ -12,29 +12,26 @@ wheel:
 	$(PYTHON) -m pip wheel . --no-deps --no-build-isolation -w $(WHEELDIR)
 
 native:
-	$(PYTHON) -c "from digiham_tpu import native; native._build(); print('native helpers:', 'loaded' if native._load() is not None else 'numpy fallback')"
+	$(PYTHON) -c "from digiham_jax import native; native._build(); print('native helpers:', 'loaded' if native._load() is not None else 'numpy fallback')"
 
 # distro-consumable CMake package of the native host runtime
 # (find_package(DigihamTpuNative) for C/C++ consumers; see docs/PACKAGING.md)
 cmake-package:
-	cmake -S digiham_tpu/native -B build/native -DCMAKE_BUILD_TYPE=Release
+	cmake -S digiham_jax/native -B build/native -DCMAKE_BUILD_TYPE=Release
 	cmake --build build/native -j
 	@echo "install with: cmake --install build/native --prefix <prefix>"
 
 test:
-	$(PYTHON) -m pytest tests/ -q
+	JAX_PLATFORMS=cpu $(PYTHON) -m pytest tests/ -q
 
 bench:
 	$(PYTHON) bench.py
 
 smoke:
-	$(PYTHON) tools/tpu_smoke.py
+	$(PYTHON) chip_smoke.py
 
 warm-cache:
 	$(PYTHON) tools/warm_cli_cache.py
-
-recert:
-	bash tools/hw_recert.sh
 
 bench-cpu-ref:
 	$(PYTHON) tools/bench_cpu_vs_ref.py

@@ -10,8 +10,8 @@ import sys
 
 import numpy as np
 
-from digiham_tpu.runtime.metrics import REGISTRY
-from digiham_tpu.runtime.tracked_bank import TrackedChannelBank
+from digiham_jax.runtime.metrics import REGISTRY
+from digiham_jax.runtime.tracked_bank import TrackedChannelBank
 
 sys.path.insert(0, "tests")
 
@@ -92,27 +92,27 @@ def synth_pocsag(channels, n_sym, rng):
 
 def build(protocol, channels):
     if protocol == "dmr":
-        from digiham_tpu.pipeline import DmrPipeline
+        from digiham_jax.pipeline import DmrPipeline
         return DmrPipeline(channels=channels, sps=10, n_centuries=4), \
             None, synth_dmr
     if protocol == "ysf":
-        from digiham_tpu.pipeline import YsfPipeline
-        from digiham_tpu.runtime.tracked_bank import YsfAdapter
+        from digiham_jax.pipeline import YsfPipeline
+        from digiham_jax.runtime.tracked_bank import YsfAdapter
         return YsfPipeline(channels=channels, sps=10, n_centuries=10), \
             YsfAdapter(), synth_ysf
     if protocol == "nxdn":
-        from digiham_tpu.pipeline import NxdnPipeline
-        from digiham_tpu.runtime.tracked_bank import NxdnAdapter
+        from digiham_jax.pipeline import NxdnPipeline
+        from digiham_jax.runtime.tracked_bank import NxdnAdapter
         return NxdnPipeline(channels=channels, sps=20, n_centuries=4), \
             NxdnAdapter(), synth_nxdn
     if protocol == "dstar":
-        from digiham_tpu.pipeline import FskPipeline
-        from digiham_tpu.runtime.tracked_bank import DstarAdapter
+        from digiham_jax.pipeline import FskPipeline
+        from digiham_jax.runtime.tracked_bank import DstarAdapter
         return FskPipeline(channels=channels, protocol="dstar",
                            n_centuries=4), DstarAdapter(), synth_dstar
     if protocol == "pocsag":
-        from digiham_tpu.pipeline import FskPipeline
-        from digiham_tpu.runtime.tracked_bank import PocsagAdapter
+        from digiham_jax.pipeline import FskPipeline
+        from digiham_jax.runtime.tracked_bank import PocsagAdapter
         return FskPipeline(channels=channels, protocol="pocsag",
                            n_centuries=4), PocsagAdapter(), synth_pocsag
     raise SystemExit(f"unknown protocol {protocol!r}")

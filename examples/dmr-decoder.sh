@@ -1,5 +1,5 @@
 #!/bin/bash
-# DMR decoding pipeline (digiham_tpu equivalent of the reference
+# DMR decoding pipeline (digiham_jax equivalent of the reference
 # examples/dmr-decoder.sh): FM-demodulated 48 kS/s float samples in.
 #
 # Requires an SDR front end, e.g.:

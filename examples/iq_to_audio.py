@@ -13,12 +13,12 @@ import sys
 import numpy as np
 import jax.numpy as jnp
 
-from digiham_tpu.dsp import (
+from digiham_jax.dsp import (
     RrcState, WIDE_RRC, demod_init, fm_discriminator, gfsk_demod_block,
     rrc_filter,
 )
-from digiham_tpu.protocols.dmr import make_decoder
-from digiham_tpu.runtime.meta import FileMetaWriter, PipelineMetaWriter
+from digiham_jax.protocols.dmr import make_decoder
+from digiham_jax.runtime.meta import FileMetaWriter, PipelineMetaWriter
 
 
 def synth_demo_iq():
@@ -69,7 +69,7 @@ def main():
         with open(args.ambe, "wb") as f:
             f.write(voice)
     if args.codecserver:
-        from digiham_tpu.codec import MbeSynthesizer, TableMode
+        from digiham_jax.codec import MbeSynthesizer, TableMode
         synth = MbeSynthesizer(args.codecserver,
                                pcm_sink=sys.stdout.buffer.write)
         synth.set_mode(TableMode(33))

@@ -1,16 +1,16 @@
 """Production serving example: MultiStreamBank — N worker processes,
 each owning a channel shard with its OWN device client session.
 
-Why this driver exists: on serving deployments where device dispatches
-from one client serialize (e.g. a tunneled/remote TPU), separate
-processes overlap — the round-4 hardware sweep measured 3.2 GS/s for
-one stream vs 36.3 GS/s aggregate at 8 processes x unroll 64
-(docs/HW_CERT_ROUND4.md). The sharded bank is byte-identical to one
-TrackedChannelBank (channels are independent), and snapshot()/restore()
-compose per-worker blobs so mid-stream checkpointing still works.
+Why this driver exists: a worker can be lost and respawned without
+touching the others, and one worker's host control-plane work overlaps
+the others' device steps. On one GPU each worker gets its share of the
+card's memory (runtime/multistream.py). The sharded bank is
+byte-identical to one TrackedChannelBank (channels are independent), and
+snapshot()/restore() compose per-worker blobs so mid-stream
+checkpointing still works.
 
 Usage: python examples/multistream_bank.py [channels] [n_procs]
-       (synthesizes DMR voice on every channel; CPU-safe, TPU-ready)
+       (synthesizes DMR voice on every channel; runs on CPU or GPU)
 """
 import sys
 import time
@@ -23,8 +23,8 @@ FOUR_LEVELS = np.array([1.0, 3.0, -1.0, -3.0]) / 3.0
 
 
 def main(channels: int = 8, n_procs: int = 2):
-    from digiham_tpu.runtime.multistream import MultiStreamBank
-    from digiham_tpu.protocols.dmr.phases import pack_dibits
+    from digiham_jax.runtime.multistream import MultiStreamBank
+    from digiham_jax.protocols.dmr.phases import pack_dibits
     from dmr_synth import voice_frame
 
     rng = np.random.default_rng(7)

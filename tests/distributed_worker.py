@@ -27,18 +27,18 @@ import numpy as np  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from jax.sharding import PartitionSpec as P  # noqa: E402
 
-from digiham_tpu.parallel.distributed import (  # noqa: E402
+from digiham_jax.parallel.distributed import (  # noqa: E402
     global_channel_mesh,
     local_channel_slice,
     make_global_array,
 )
-from digiham_tpu.parallel import sharded_pipeline_step  # noqa: E402
-from digiham_tpu.dsp.demod import demod_init, gfsk_demod_block  # noqa: E402
-from digiham_tpu.dsp.rrc import (WIDE_RRC, RrcState,  # noqa: E402
+from digiham_jax.parallel import sharded_pipeline_step  # noqa: E402
+from digiham_jax.dsp.demod import demod_init, gfsk_demod_block  # noqa: E402
+from digiham_jax.dsp.rrc import (WIDE_RRC, RrcState,  # noqa: E402
                                  rrc_filter_block)
-from digiham_tpu.pipeline.dmr import (dmr_decode_frames,  # noqa: E402
+from digiham_jax.pipeline.dmr import (dmr_decode_frames,  # noqa: E402
                                       dmr_sync_correlate)
-from digiham_tpu.protocols.dmr.phases import FRAME_SIZE  # noqa: E402
+from digiham_jax.protocols.dmr.phases import FRAME_SIZE  # noqa: E402
 
 assert jax.process_count() == 2, jax.process_count()
 assert jax.device_count() == 8, jax.device_count()

@@ -3,15 +3,15 @@ CACH/TACT, sync patterns, SlotType+BPTC data bursts, and voice superframes
 with embedded LC — the TX inverse of the decoder under test."""
 import numpy as np
 
-from digiham_tpu.fec import bptc
-from digiham_tpu.fec.codes import (
+from digiham_jax.fec import bptc
+from digiham_jax.fec.codes import (
     GOLAY_20_8, HAMMING_7_4, HAMMING_16_11, QR_16_7,
 )
-from digiham_tpu.protocols.dmr.phases import (
+from digiham_jax.protocols.dmr.phases import (
     BS_DATA_SYNC, BS_VOICE_SYNC, CACH_SIZE, FRAME_SIZE,
     MS_DATA_SYNC, MS_VOICE_SYNC, SYNC_OFFSET, SYNC_SIZE,
 )
-from digiham_tpu.protocols.dmr.components import (
+from digiham_jax.protocols.dmr.components import (
     TACT_POSITIONS, LCSS_START, LCSS_STOP, LCSS_CONTINUATION,
 )
 
@@ -55,7 +55,7 @@ def data_frame(slot: int, data_type: int, lc9: bytes,
     # BPTC payload from 96 data bits: LC 9 + masked RS(12,9) parity
     # (ETSI B.3.6 — spec-true TX; the reference RX ignores the parity,
     # ours checks it only under DIGIHAM_DMR_RS129=1)
-    from digiham_tpu.fec import rs129
+    from digiham_jax.fec import rs129
     mask = {1: rs129.MASK_VOICE_LC_HEADER,
             2: rs129.MASK_TERMINATOR_WITH_LC}.get(data_type, 0)
     parity = bytes(b ^ mask for b in rs129.encode(lc9))

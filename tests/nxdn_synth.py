@@ -1,11 +1,11 @@
 """NXDN frame synthesizer for tests."""
 import numpy as np
 
-from digiham_tpu.fec import interleave
-from digiham_tpu.fec.crc import crc6_nxdn, crc12_nxdn
-from digiham_tpu.fec.viterbi import conv_encode
-from digiham_tpu.protocols.nxdn.components import Scrambler
-from digiham_tpu.protocols.nxdn.phases import FRAME_SIZE, FRAME_SYNC, SYNC_SIZE
+from digiham_jax.fec import interleave
+from digiham_jax.fec.crc import crc6_nxdn, crc12_nxdn
+from digiham_jax.fec.viterbi import conv_encode
+from digiham_jax.protocols.nxdn.components import Scrambler
+from digiham_jax.protocols.nxdn.phases import FRAME_SIZE, FRAME_SYNC, SYNC_SIZE
 
 
 def _conv_and_puncture(bits, keep_mask_len, skip_fn):

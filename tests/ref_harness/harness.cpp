@@ -1,5 +1,5 @@
 // Golden-oracle harness: builds the REFERENCE decoders (via the csdr shim)
-// into a stdin->stdout tool so digiham_tpu's decoders can be compared
+// into a stdin->stdout tool so digiham_jax's decoders can be compared
 // byte-for-byte against the original implementation.
 //
 // Usage: ref_harness <dmr|ysf|nxdn|dstar|pocsag> [metadata-file]

@@ -2,11 +2,11 @@
 import numpy as np
 import pytest
 
-from digiham_tpu.fec import crc as crc_mod
-from digiham_tpu.fec import lfsr
-from digiham_tpu.fec import interleave as il
-from digiham_tpu.fec import bptc
-from digiham_tpu.fec.viterbi import (
+from digiham_jax.fec import crc as crc_mod
+from digiham_jax.fec import lfsr
+from digiham_jax.fec import interleave as il
+from digiham_jax.fec import bptc
+from digiham_jax.fec.viterbi import (
     conv_encode,
     viterbi_decode,
     viterbi_decode_np,

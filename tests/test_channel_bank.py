@@ -2,11 +2,11 @@
 import numpy as np
 import pytest
 
-from digiham_tpu.pipeline import DmrPipeline
-from digiham_tpu.protocols.dmr import make_decoder
-from digiham_tpu.protocols.dmr.phases import pack_dibits
-from digiham_tpu.runtime.channel_bank import ChannelBank
-from digiham_tpu.runtime.meta import PipelineMetaWriter
+from digiham_jax.pipeline import DmrPipeline
+from digiham_jax.protocols.dmr import make_decoder
+from digiham_jax.protocols.dmr.phases import pack_dibits
+from digiham_jax.runtime.channel_bank import ChannelBank
+from digiham_jax.runtime.meta import PipelineMetaWriter
 
 from dmr_synth import voice_frame
 

@@ -2,9 +2,9 @@
 import numpy as np
 import pytest
 
-from digiham_tpu.pipeline import FskPipeline, NxdnPipeline, YsfPipeline
-from digiham_tpu.runtime.channel_bank import ChannelBank
-from digiham_tpu.runtime.meta import PipelineMetaWriter
+from digiham_jax.pipeline import FskPipeline, NxdnPipeline, YsfPipeline
+from digiham_jax.runtime.channel_bank import ChannelBank
+from digiham_jax.runtime.meta import PipelineMetaWriter
 
 from ysf_synth import vd2_frame, terminator_frame
 from nxdn_synth import (encode_sacch_unit, nxdn_frame,
@@ -26,7 +26,7 @@ def synth2(bits, sps, amp=1000.0, invert=False):
 
 
 def test_ysf_bank():
-    from digiham_tpu.protocols.ysf import make_decoder
+    from digiham_jax.protocols.ysf import make_decoder
     channels = 2
     frames = [vd2_frame(i, b"BANKTEST  ") for i in range(4)]
     frames.append(terminator_frame())
@@ -45,7 +45,7 @@ def test_ysf_bank():
 
 
 def test_nxdn_bank():
-    from digiham_tpu.protocols.nxdn import make_decoder
+    from digiham_jax.protocols.nxdn import make_decoder
     channels = 2
     units = vcall_superframe_bytes(0b001, 555, 666)
     payload = (np.arange(72) % 4).astype(np.uint8)
@@ -74,7 +74,7 @@ def test_nxdn_bank():
 
 
 def test_pocsag_bank():
-    from digiham_tpu.protocols.pocsag import make_decoder
+    from digiham_jax.protocols.pocsag import make_decoder
     channels = 2
     texts = ["BANK A", "BANK B"]
     sigs = []

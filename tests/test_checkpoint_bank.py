@@ -4,9 +4,9 @@ backlog, dibit buffers, hunt/tracker/meta state all round-trip)."""
 import numpy as np
 import pytest
 
-from digiham_tpu.pipeline import DmrPipeline, FskPipeline
-from digiham_tpu.runtime.meta import PipelineMetaWriter
-from digiham_tpu.runtime.tracked_bank import (
+from digiham_jax.pipeline import DmrPipeline, FskPipeline
+from digiham_jax.runtime.meta import PipelineMetaWriter
+from digiham_jax.runtime.tracked_bank import (
     DstarAdapter,
     TrackedChannelBank,
 )
@@ -97,8 +97,8 @@ def test_snapshot_is_plain_bytes():
 def test_symbol_channel_bank_resume():
     """The symbol-domain ChannelBank snapshots/restores bit-exactly too
     (decoder phase machines + device carries + backlog)."""
-    from digiham_tpu.protocols.dmr import make_decoder
-    from digiham_tpu.runtime.channel_bank import ChannelBank
+    from digiham_jax.protocols.dmr import make_decoder
+    from digiham_jax.runtime.channel_bank import ChannelBank
 
     payload = np.tile([1, 3, 0, 2], 27)
     frames = [voice_frame(s % 2, payload, sync=True) for s in range(24)]

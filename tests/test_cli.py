@@ -25,7 +25,7 @@ def run_tool(main_name: str, args: list, stdin: bytes,
     env["PYTHONPATH"] = REPO
     env["JAX_PLATFORMS"] = "cpu"
     code = (f"import jax; jax.config.update('jax_platforms','cpu');"
-            f"from digiham_tpu.cli.tools import {main_name};"
+            f"from digiham_jax.cli.tools import {main_name};"
             f"import sys; sys.argv=['x']+{args!r};"
             f"raise SystemExit({main_name}())")
     proc = subprocess.run(
@@ -53,7 +53,7 @@ class TestRrcFilterCli:
         out = run_tool("rrc_filter_main", [], x.tobytes())
         y = np.frombuffer(out, np.float32)
         assert len(y) == len(x)
-        from digiham_tpu.dsp.rrc import rrc_filter_np
+        from digiham_jax.dsp.rrc import rrc_filter_np
         np.testing.assert_allclose(y, rrc_filter_np(x), atol=1e-5)
 
     def test_narrow_flag(self):
@@ -61,7 +61,7 @@ class TestRrcFilterCli:
         x[0] = 1.0
         out = run_tool("rrc_filter_main", ["--narrow"], x.tobytes())
         y = np.frombuffer(out, np.float32)
-        from digiham_tpu.dsp.rrc import NARROW_RRC
+        from digiham_jax.dsp.rrc import NARROW_RRC
         # impulse response peak = center tap / gain
         peak = max(NARROW_RRC.taps) / NARROW_RRC.gain
         np.testing.assert_allclose(y.max(), peak, rtol=1e-5)
@@ -86,7 +86,7 @@ class TestDmrPipelineCli:
     def test_gfsk_into_dmr(self):
         """gfsk_demodulator | dmr_decoder — two-stage shell pipeline."""
         from dmr_synth import voice_frame
-        from digiham_tpu.protocols.dmr.phases import pack_dibits
+        from digiham_jax.protocols.dmr.phases import pack_dibits
         payload = np.tile([1, 3, 0, 2], 27)
         frames = [voice_frame(s % 2, payload, sync=True) for s in range(8)]
         dibits = np.concatenate(frames)

@@ -69,7 +69,7 @@ class TestMbeCli:
         env = dict(os.environ)
         env["PYTHONPATH"] = os.path.dirname(os.path.dirname(
             os.path.abspath(__file__)))
-        code = ("from digiham_tpu.cli.tools import mbe_synthesizer_main;"
+        code = ("from digiham_jax.cli.tools import mbe_synthesizer_main;"
                 "import sys; sys.argv=['mbe_synthesizer','-s',"
                 f"{path!r},'-t'];"
                 "raise SystemExit(mbe_synthesizer_main())")

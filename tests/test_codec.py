@@ -5,14 +5,14 @@ import threading
 
 import pytest
 
-from digiham_tpu.codec import (
+from digiham_jax.codec import (
     ControlWordMode,
     DynamicMode,
     MbeSynthesizer,
     TableMode,
 )
-from digiham_tpu.codec import proto
-from digiham_tpu.codec.modes import (
+from digiham_jax.codec import proto
+from digiham_jax.codec.modes import (
     DMR_NXDN_TABLE_INDEX,
     DSTAR_CONTROL_WORDS,
     YSF_DN_TABLE_INDEX,
@@ -92,7 +92,7 @@ class MockCodecServer(threading.Thread):
                                  else 18, 320)
 
     def run(self):
-        from digiham_tpu.codec.mbe import _Connection
+        from digiham_jax.codec.mbe import _Connection
         conn = _Connection(self.listener)
         try:
             self._serve(conn)

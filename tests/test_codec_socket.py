@@ -7,9 +7,9 @@ import time
 
 import pytest
 
-from digiham_tpu.codec import MbeSynthesizer, TableMode
-from digiham_tpu.codec import proto
-from digiham_tpu.codec.mbe import _Connection
+from digiham_jax.codec import MbeSynthesizer, TableMode
+from digiham_jax.codec import proto
+from digiham_jax.codec.mbe import _Connection
 
 
 class UnixMockServer(threading.Thread):
@@ -61,7 +61,7 @@ def test_unix_socket_roundtrip():
 
 
 def test_connect_failure_raises():
-    from digiham_tpu.codec.mbe import ConnectionError_
+    from digiham_jax.codec.mbe import ConnectionError_
     with pytest.raises(ConnectionError_):
         MbeSynthesizer("/tmp/definitely-missing-codecserver.sock")
 

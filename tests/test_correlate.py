@@ -4,7 +4,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from digiham_tpu.ops.correlate import sync_correlate_conv
+from digiham_jax.ops.correlate import sync_correlate_conv
 
 
 def _reference(symbols, patterns, n_values):

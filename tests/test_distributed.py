@@ -6,7 +6,7 @@ assemble a global sample array from per-host channel rows, run the
 sharded DMR pipeline step, and verify the gathered outputs equal the
 single-device reference — exercising process bring-up, host-local
 channel slicing, make_array_from_process_local_data, and cross-process
-collectives (Gloo), all without TPU hardware.
+collectives (Gloo), all without accelerator hardware.
 """
 import os
 import socket

@@ -2,8 +2,8 @@
 import numpy as np
 import pytest
 
-from digiham_tpu.protocols.dmr import make_decoder
-from digiham_tpu.protocols.dmr.components import (
+from digiham_jax.protocols.dmr import make_decoder
+from digiham_jax.protocols.dmr.components import (
     DATA_TYPE_IDLE,
     DATA_TYPE_TERMINATOR_LC,
     DATA_TYPE_VOICE_LC,
@@ -11,8 +11,8 @@ from digiham_tpu.protocols.dmr.components import (
     LC_GPS_INFO,
     TalkerAliasCollector,
 )
-from digiham_tpu.protocols.dmr.phases import pack_dibits
-from digiham_tpu.runtime.meta import PipelineMetaWriter
+from digiham_jax.protocols.dmr.phases import pack_dibits
+from digiham_jax.runtime.meta import PipelineMetaWriter
 
 from dmr_synth import (
     data_frame,
@@ -222,7 +222,7 @@ def test_ms_sync_voice_decodes_like_bs():
     """Mobile-station sync patterns map to the same voice sync type
     (dmr_phase.hpp:25-28): an MS voice stream decodes identically."""
     from dmr_synth import voice_frame
-    from digiham_tpu.protocols.dmr import make_decoder
+    from digiham_jax.protocols.dmr import make_decoder
     payload = np.tile([2, 0, 3, 1], 27)
     bs = [voice_frame(s % 2, payload, sync=True) for s in range(8)]
     ms = [voice_frame(s % 2, payload, sync=True, ms=True)

@@ -4,14 +4,14 @@ dmr_phase.cpp:65-205), so they get targeted adversarial coverage."""
 import numpy as np
 import pytest
 
-from digiham_tpu.protocols.dmr import make_decoder
-from digiham_tpu.protocols.dmr.phases import (
+from digiham_jax.protocols.dmr import make_decoder
+from digiham_jax.protocols.dmr.phases import (
     FRAME_SIZE,
     FramePhase,
     SyncPhase,
     pack_dibits,
 )
-from digiham_tpu.runtime.meta import PipelineMetaWriter
+from digiham_jax.runtime.meta import PipelineMetaWriter
 
 from dmr_synth import make_cach, voice_frame
 
@@ -102,7 +102,7 @@ class TestSyncCounters:
         """voice -> data sync transition soft-resets call metadata but
         keeps sync (dmr_phase.cpp:108-114)."""
         from dmr_synth import data_frame, group_lc
-        from digiham_tpu.protocols.dmr.components import DATA_TYPE_IDLE
+        from digiham_jax.protocols.dmr.components import DATA_TYPE_IDLE
         payload = np.tile([1, 3, 0, 2], 27)
         lc = group_lc(100, 200)
         frames = ([data_frame(s % 2, 1, lc) for s in range(4)]

@@ -4,7 +4,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from digiham_tpu.dsp import (
+from digiham_jax.dsp import (
     WIDE_RRC,
     NARROW_RRC,
     RrcState,
@@ -22,7 +22,7 @@ from digiham_tpu.dsp import (
     dc_block,
     DcBlockState,
 )
-from digiham_tpu.dsp.rrc import rrc_filter_np
+from digiham_jax.dsp.rrc import rrc_filter_np
 
 
 def synth_4fsk(symbols, sps, amp=1000.0, noise=0.0, seed=0):

@@ -2,19 +2,19 @@
 import numpy as np
 import pytest
 
-from digiham_tpu.fec.crc import crc16_dstar
-from digiham_tpu.fec.lfsr import dstar_scrambler
-from digiham_tpu.protocols.dstar import make_decoder
-from digiham_tpu.protocols.dstar.header import (
+from digiham_jax.fec.crc import crc16_dstar
+from digiham_jax.fec.lfsr import dstar_scrambler
+from digiham_jax.protocols.dstar import make_decoder
+from digiham_jax.protocols.dstar.header import (
     Header,
     encode_header,
 )
-from digiham_tpu.protocols.dstar.phases import (
+from digiham_jax.protocols.dstar.phases import (
     HEADER_SYNC,
     TERMINATOR,
     VOICE_SYNC,
 )
-from digiham_tpu.runtime.meta import PipelineMetaWriter
+from digiham_jax.runtime.meta import PipelineMetaWriter
 
 
 def make_header_bytes(dest="DIRECT", dep="DIRECT", companion="CQCQCQ",

@@ -10,8 +10,8 @@ import itertools
 import numpy as np
 import pytest
 
-from digiham_tpu.fec import ALL_CODES, decode, decode_np
-from digiham_tpu.fec import (
+from digiham_jax.fec import ALL_CODES, decode, decode_np
+from digiham_jax.fec import (
     BCH_31_21,
     GOLAY_20_8,
     GOLAY_24_12,

@@ -16,16 +16,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 HARNESS_DIR = os.path.join(os.path.dirname(__file__), "ref_harness")
 
 
-@pytest.fixture(scope="module", autouse=True)
-def build_harness():
-    r = subprocess.run(["make", "-s", "ref_harness", "dsp_harness"],
-                       cwd=HARNESS_DIR, capture_output=True, timeout=300)
-    assert r.returncode == 0, r.stderr.decode()[-2000:]
-
-
 def _ours_tracked(pipe, adapter, samples, chunk=4096):
-    from digiham_tpu.runtime.meta import PipelineMetaWriter
-    from digiham_tpu.runtime.tracked_bank import TrackedChannelBank
+    from digiham_jax.runtime.meta import PipelineMetaWriter
+    from digiham_jax.runtime.tracked_bank import TrackedChannelBank
 
     out = {0: b""}
     bank = TrackedChannelBank(
@@ -54,9 +47,9 @@ def _reference(demod_args, protocol, samples, tmp_path):
         return p2.stdout, f.read()
 
 
-def test_dstar_abrupt_end(tmp_path):
-    from digiham_tpu.pipeline import FskPipeline
-    from digiham_tpu.runtime.tracked_bank import DstarAdapter
+def test_dstar_abrupt_end(tmp_path, ref_harness):
+    from digiham_jax.pipeline import FskPipeline
+    from digiham_jax.runtime.tracked_bank import DstarAdapter
     from test_dstar import full_voice_stream
     rng = np.random.default_rng(7)
     bits = np.concatenate(full_voice_stream(25))
@@ -72,9 +65,11 @@ def test_dstar_abrupt_end(tmp_path):
         bank.push(np.zeros((1, 100), np.float32))  # terminal
 
 
-def test_pocsag_abrupt_end(tmp_path):
-    from digiham_tpu.pipeline import FskPipeline
-    from digiham_tpu.runtime.tracked_bank import PocsagAdapter
+def _pocsag_abrupt():
+    """A POCSAG message whose stream ends with no trailing padding;
+    returns (samples, the bank's flushed output)."""
+    from digiham_jax.pipeline import FskPipeline
+    from digiham_jax.runtime.tracked_bank import PocsagAdapter
     from test_pocsag import (address_codeword, alpha_payloads,
                              build_stream, data_codeword)
     rng = np.random.default_rng(8)
@@ -87,15 +82,26 @@ def test_pocsag_abrupt_end(tmp_path):
     _, got, _ = _ours_tracked(
         FskPipeline(channels=1, protocol="pocsag", n_centuries=2),
         PocsagAdapter(), samples, chunk=8192)
+    return samples, got
+
+
+def test_pocsag_abrupt_end_decodes():
+    """flush() drains the tail: the whole message comes out."""
+    _, got = _pocsag_abrupt()
+    assert b"FLUSH WORKS" in got
+
+
+def test_pocsag_abrupt_end(tmp_path, ref_harness):
+    samples, got = _pocsag_abrupt()
     ref, _ = _reference(["fsk", "40", "i"], "pocsag", samples, tmp_path)
     assert got == ref and b"FLUSH WORKS" in got
 
 
 def test_symbol_channel_bank_flush(tmp_path):
     """ChannelBank.flush with the full per-channel decoders."""
-    from digiham_tpu.pipeline import FskPipeline
-    from digiham_tpu.protocols.dstar import make_decoder
-    from digiham_tpu.runtime.channel_bank import ChannelBank
+    from digiham_jax.pipeline import FskPipeline
+    from digiham_jax.protocols.dstar import make_decoder
+    from digiham_jax.runtime.channel_bank import ChannelBank
     from test_dstar import full_voice_stream
     bits = np.concatenate(full_voice_stream(20))
     lv = np.array([-1.0, 1.0])
@@ -113,7 +119,7 @@ def test_symbol_channel_bank_flush(tmp_path):
     # exact contract: == one-shot decode of the oracle-demodulated
     # FULL stream (the final frame stays in the DECODER's own 120-bit
     # lookahead, faithfully — the demod tail is fully drained)
-    from digiham_tpu.dsp.demod import FskDemodNp
+    from digiham_jax.dsp.demod import FskDemodNp
     all_bits = FskDemodNp(10).process(samples[0])
     want = make_decoder().process(all_bits)
     assert out[0] == want and out[1] == want and len(want) > 0
@@ -125,8 +131,8 @@ def test_subclassed_pipeline_flush_parity():
     tail byte-identically to the plain one. Under the old
     type(...).__name__ dispatch the subclass silently skipped the RRC
     stage on the flushed tail (round-4 VERDICT weak #8)."""
-    from digiham_tpu.pipeline import DmrPipeline
-    from digiham_tpu.runtime.tracked_bank import TrackedChannelBank
+    from digiham_jax.pipeline import DmrPipeline
+    from digiham_jax.runtime.tracked_bank import TrackedChannelBank
     from dmr_synth import voice_frame
 
     class RenamedDmrPipeline(DmrPipeline):
@@ -158,7 +164,7 @@ def test_subclassed_pipeline_flush_parity():
     assert sub == base
 
 
-def test_cli_demod_flush_matches_reference_binary(tmp_path):
+def test_cli_demod_flush_matches_reference_binary(tmp_path, ref_harness):
     """The fsk_demodulator CLI drains its tail at EOF: byte-identical
     symbol stream to the reference binary on UNPADDED input."""
     from test_dstar import full_voice_stream

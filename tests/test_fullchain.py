@@ -5,10 +5,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from digiham_tpu.dsp.demod import demod_init, fsk_demod_block, \
+from digiham_jax.dsp.demod import demod_init, fsk_demod_block, \
     gfsk_demod_block
-from digiham_tpu.dsp.rrc import NARROW_RRC, WIDE_RRC, RrcState, rrc_filter
-from digiham_tpu.runtime.meta import PipelineMetaWriter
+from digiham_jax.dsp.rrc import NARROW_RRC, WIDE_RRC, RrcState, rrc_filter
+from digiham_jax.runtime.meta import PipelineMetaWriter
 
 from dmr_synth import voice_frame as dmr_voice_frame
 from nxdn_synth import nxdn_frame, encode_sacch_unit, vcall_superframe_bytes, \
@@ -57,7 +57,7 @@ class TestYsfChain:
     def test_wide_rrc_gfsk_ysf(self):
         """examples/ysf-decoder.sh: rrc_filter | gfsk_demodulator |
         ysf_decoder."""
-        from digiham_tpu.protocols.ysf import make_decoder
+        from digiham_jax.protocols.ysf import make_decoder
         frames = [vd2_frame(i, b"CHAINTEST ") for i in range(3)]
         frames.append(terminator_frame())
         dibits = np.concatenate(
@@ -75,7 +75,7 @@ class TestNxdnChain:
     def test_narrow_rrc_gfsk_nxdn(self):
         """examples/nxdn48-decoder.sh: rrc_filter -n | gfsk_demodulator
         -s 20 | nxdn_decoder."""
-        from digiham_tpu.protocols.nxdn import make_decoder
+        from digiham_jax.protocols.nxdn import make_decoder
         units = vcall_superframe_bytes(0b001, 777, 888)
         payload = (np.arange(72) % 4).astype(np.uint8)
         frames = []
@@ -100,7 +100,7 @@ class TestDstarChain:
     def test_fsk_dstar(self):
         """examples/dstar-decoder.sh: fsk_demodulator -s 10 |
         dstar_decoder (no RRC)."""
-        from digiham_tpu.protocols.dstar import make_decoder
+        from digiham_jax.protocols.dstar import make_decoder
         import test_dstar
         bits = np.concatenate(
             dstar_stream(24) + [np.zeros(300, np.uint8)])
@@ -117,7 +117,7 @@ class TestPocsagChain:
     def test_inverted_fsk_pocsag(self):
         """examples/pocsag-decoder.sh: fsk_demodulator -i -s 40 |
         pocsag_decoder."""
-        from digiham_tpu.protocols.pocsag import make_decoder
+        from digiham_jax.protocols.pocsag import make_decoder
         text = "RF CHAIN"
         cws = [address_codeword(321, 3)]
         cws.extend(data_codeword(p) for p in alpha_payloads(text))

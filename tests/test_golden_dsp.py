@@ -1,5 +1,5 @@
 """Golden DSP tests: the reference front-end modules (compiled C++) vs
-digiham_tpu's device kernels on identical sample streams. Validates the
+digiham_jax's device kernels on identical sample streams. Validates the
 AGC, symbol-timing variance loop, slicers, FIR, and IIR at the symbol /
 sample level."""
 import os
@@ -13,10 +13,10 @@ import jax.numpy as jnp
 
 sys.path.insert(0, os.path.dirname(__file__))
 
-from digiham_tpu.dsp.audio import DigitalVoiceState, digitalvoice_filter
-from digiham_tpu.dsp.demod import demod_init, fsk_demod_block, \
+from digiham_jax.dsp.audio import DigitalVoiceState, digitalvoice_filter
+from digiham_jax.dsp.demod import demod_init, fsk_demod_block, \
     gfsk_demod_block
-from digiham_tpu.dsp.rrc import NARROW_RRC, WIDE_RRC, RrcState, rrc_filter
+from digiham_jax.dsp.rrc import NARROW_RRC, WIDE_RRC, RrcState, rrc_filter
 
 HARNESS_DIR = os.path.join(os.path.dirname(__file__), "ref_harness")
 HARNESS = os.path.join(HARNESS_DIR, "dsp_harness")
@@ -24,11 +24,9 @@ HARNESS = os.path.join(HARNESS_DIR, "dsp_harness")
 LEVELS = np.array([1.0, 3.0, -1.0, -3.0]) / 3.0
 
 
-@pytest.fixture(scope="module", autouse=True)
-def build_harness():
-    r = subprocess.run(["make", "-s", "dsp_harness"], cwd=HARNESS_DIR,
-                       capture_output=True, timeout=300)
-    assert r.returncode == 0, r.stderr.decode()[-2000:]
+# only these tests run the reference binaries: skip, not error, when
+# the reference source tree is absent (tests/conftest.py)
+pytestmark = pytest.mark.usefixtures("ref_harness")
 
 
 def ref(args, data, dtype_out):
@@ -123,7 +121,7 @@ class TestFullChainGolden:
         gfsk_demodulator | dmr_decoder) vs our chain: identical voice
         payload bytes from the same baseband samples."""
         from dmr_synth import voice_frame
-        from digiham_tpu.protocols.dmr import make_decoder
+        from digiham_jax.protocols.dmr import make_decoder
         payload = np.tile([1, 3, 0, 2], 27)
         frames = [voice_frame(s % 2, payload, sync=True) for s in range(10)]
         dibits = np.concatenate([np.zeros(40, np.uint8)] + frames)

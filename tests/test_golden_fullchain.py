@@ -15,11 +15,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 HARNESS_DIR = os.path.join(os.path.dirname(__file__), "ref_harness")
 
 
-@pytest.fixture(scope="module", autouse=True)
-def build_harness():
-    r = subprocess.run(["make", "-s", "ref_harness", "dsp_harness"],
-                       cwd=HARNESS_DIR, capture_output=True, timeout=300)
-    assert r.returncode == 0, r.stderr.decode()[-2000:]
+# only these tests run the reference binaries: skip, not error, when
+# the reference source tree is absent (tests/conftest.py)
+pytestmark = pytest.mark.usefixtures("ref_harness")
 
 
 @pytest.mark.parametrize("seed", [64000, 64001, 64002, 64010, 64011,

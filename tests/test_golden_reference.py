@@ -17,11 +17,9 @@ HARNESS_DIR = os.path.join(os.path.dirname(__file__), "ref_harness")
 HARNESS = os.path.join(HARNESS_DIR, "ref_harness")
 
 
-@pytest.fixture(scope="module", autouse=True)
-def build_harness():
-    r = subprocess.run(["make", "-s", "ref_harness"], cwd=HARNESS_DIR,
-                       capture_output=True, timeout=300)
-    assert r.returncode == 0, r.stderr.decode()[-2000:]
+# only these tests run the reference binaries: skip, not error, when
+# the reference source tree is absent (tests/conftest.py)
+pytestmark = pytest.mark.usefixtures("ref_harness")
 
 
 def run_reference(protocol: str, symbols: np.ndarray, tmp_path):
@@ -35,7 +33,7 @@ def run_reference(protocol: str, symbols: np.ndarray, tmp_path):
 
 
 def run_ours(make_decoder, symbols: np.ndarray):
-    from digiham_tpu.runtime.meta import PipelineMetaWriter
+    from digiham_jax.runtime.meta import PipelineMetaWriter
     events = []
     dec = make_decoder()
     dec.set_meta_writer(PipelineMetaWriter(lambda b: events.append(b.decode())))
@@ -57,7 +55,7 @@ def compare(protocol, make_decoder, symbols, tmp_path):
 
 class TestDmrGolden:
     def test_voice_and_data(self, tmp_path):
-        from digiham_tpu.protocols.dmr import make_decoder
+        from digiham_jax.protocols.dmr import make_decoder
         from dmr_synth import data_frame, group_lc, voice_frame
         rng = np.random.default_rng(0)
         payload = np.tile([1, 3, 0, 2], 27)
@@ -71,7 +69,7 @@ class TestDmrGolden:
         assert len(out) > 0
 
     def test_embedded_lc_superframes(self, tmp_path):
-        from digiham_tpu.protocols.dmr import make_decoder
+        from digiham_jax.protocols.dmr import make_decoder
         from dmr_synth import group_lc, voice_superframe
         lc = group_lc(3100999, 3100001)
         payload = np.tile([1, 3, 0, 2], 27)
@@ -82,7 +80,7 @@ class TestDmrGolden:
     def test_random_fuzz(self, tmp_path):
         """Pure noise: both implementations must behave identically on
         arbitrary input (false syncs, failed FEC, hysteresis churn)."""
-        from digiham_tpu.protocols.dmr import make_decoder
+        from digiham_jax.protocols.dmr import make_decoder
         for seed in range(3):
             rng = np.random.default_rng(seed)
             stream = rng.integers(0, 4, 20000).astype(np.uint8)
@@ -91,7 +89,7 @@ class TestDmrGolden:
     def test_corrupted_stream_fuzz(self, tmp_path):
         """Real frames with random symbol corruption: exercises every
         FEC-reject and counter path identically."""
-        from digiham_tpu.protocols.dmr import make_decoder
+        from digiham_jax.protocols.dmr import make_decoder
         from dmr_synth import voice_frame
         payload = np.tile([1, 3, 0, 2], 27)
         frames = [voice_frame(s % 2, payload, sync=True) for s in range(20)]
@@ -104,7 +102,7 @@ class TestDmrGolden:
 
 class TestYsfGolden:
     def test_vd2_with_header(self, tmp_path):
-        from digiham_tpu.protocols.ysf import make_decoder
+        from digiham_jax.protocols.ysf import make_decoder
         from ysf_synth import header_frame, terminator_frame, vd2_frame
         frames = [header_frame(b"ALL", b"W1AW", b"GW-1", b"UPLINK")]
         frames += [vd2_frame(i % 8, b"DG1ABC    ") for i in range(6)]
@@ -117,7 +115,7 @@ class TestYsfGolden:
         assert len(out) > 0
 
     def test_random_fuzz(self, tmp_path):
-        from digiham_tpu.protocols.ysf import make_decoder
+        from digiham_jax.protocols.ysf import make_decoder
         for seed in range(3):
             rng = np.random.default_rng(100 + seed)
             stream = rng.integers(0, 4, 20000).astype(np.uint8)
@@ -126,7 +124,7 @@ class TestYsfGolden:
 
 class TestNxdnGolden:
     def test_vcall_stream(self, tmp_path):
-        from digiham_tpu.protocols.nxdn import make_decoder
+        from digiham_jax.protocols.nxdn import make_decoder
         from nxdn_synth import (encode_sacch_unit, nxdn_frame,
                                 vcall_superframe_bytes, voice_slot_dibits)
         units = vcall_superframe_bytes(0b001, 1234, 567)
@@ -142,7 +140,7 @@ class TestNxdnGolden:
         assert len(out) > 0
 
     def test_random_fuzz(self, tmp_path):
-        from digiham_tpu.protocols.nxdn import make_decoder
+        from digiham_jax.protocols.nxdn import make_decoder
         for seed in range(3):
             rng = np.random.default_rng(200 + seed)
             stream = rng.integers(0, 4, 20000).astype(np.uint8)
@@ -151,7 +149,7 @@ class TestNxdnGolden:
 
 class TestDstarGolden:
     def test_header_voice_slowdata(self, tmp_path):
-        from digiham_tpu.protocols.dstar import make_decoder
+        from digiham_jax.protocols.dstar import make_decoder
         from test_dstar import full_voice_stream
         text = b"HELLO FROM DSTAR  !!"
         msg_frames = {}
@@ -166,7 +164,7 @@ class TestDstarGolden:
         assert len(out) > 0
 
     def test_random_fuzz(self, tmp_path):
-        from digiham_tpu.protocols.dstar import make_decoder
+        from digiham_jax.protocols.dstar import make_decoder
         for seed in range(3):
             rng = np.random.default_rng(300 + seed)
             stream = rng.integers(0, 2, 30000).astype(np.uint8)
@@ -175,7 +173,7 @@ class TestDstarGolden:
 
 class TestPocsagGolden:
     def test_alpha_message(self, tmp_path):
-        from digiham_tpu.protocols.pocsag import make_decoder
+        from digiham_jax.protocols.pocsag import make_decoder
         from test_pocsag import (IDLE_CODEWORD, address_codeword,
                                  alpha_payloads, build_stream, data_codeword)
         text = "GOLDEN TEST 123"
@@ -187,7 +185,7 @@ class TestPocsagGolden:
         assert f"message:{text}".encode() in out
 
     def test_random_fuzz(self, tmp_path):
-        from digiham_tpu.protocols.pocsag import make_decoder
+        from digiham_jax.protocols.pocsag import make_decoder
         for seed in range(3):
             rng = np.random.default_rng(400 + seed)
             stream = rng.integers(0, 2, 30000).astype(np.uint8)

@@ -9,6 +9,10 @@ import pytest
 sys.path.insert(0, os.path.dirname(__file__))
 
 from test_golden_reference import compare
+
+# every test here runs the compiled reference: skip, not fail, when the
+# reference source tree is absent (tests/conftest.py)
+pytestmark = pytest.mark.usefixtures("ref_harness")
 from ysf_synth import vd2_frame, terminator_frame
 
 
@@ -41,7 +45,7 @@ def dt_frames():
 
 class TestYsfGpsGolden:
     def test_gps_metadata_identical(self, tmp_path):
-        from digiham_tpu.protocols.ysf import make_decoder
+        from digiham_jax.protocols.ysf import make_decoder
         d1, d2 = dt_frames()
         frames = [vd2_frame(0, b"CALLSIGN  "), d1, d2,
                   terminator_frame(), terminator_frame()]
@@ -52,7 +56,7 @@ class TestYsfGpsGolden:
     def test_random_gps_bytes(self, seed, tmp_path):
         """Random (mostly invalid) GPS payloads: validity checks and float
         decode paths must agree exactly."""
-        from digiham_tpu.protocols.ysf import make_decoder
+        from digiham_jax.protocols.ysf import make_decoder
         rng = np.random.default_rng(seed)
         data = bytearray(20)
         data[1:4] = (0x22625F).to_bytes(3, "big")

@@ -34,13 +34,6 @@ FS, DEV, SPS = 48000.0, 1944.0, 10
 N_FRAMES = 12
 
 
-@pytest.fixture(scope="module", autouse=True)
-def build_harness():
-    r = subprocess.run(["make", "-s", "ref_harness", "dsp_harness"],
-                       cwd=HARNESS_DIR, capture_output=True, timeout=300)
-    assert r.returncode == 0, r.stderr.decode()[-2000:]
-
-
 def modulate(dibits):
     freq = np.repeat(LEVELS[np.asarray(dibits)], SPS) * DEV
     phase = 2 * np.pi * np.cumsum(freq) / FS
@@ -61,15 +54,15 @@ def _tx():
 def _audio(iq):
     """OUR IQ front end (the rtl_fm equivalent), shared by both chains."""
     import jax.numpy as jnp
-    from digiham_tpu.dsp.fm import fm_discriminator
+    from digiham_jax.dsp.fm import fm_discriminator
     a, _ = fm_discriminator(jnp.asarray(iq[None, :]),
                             jnp.ones((1,), jnp.complex64))
     return (np.asarray(a)[0] * 5000.0).astype(np.float32)
 
 
 def _ours(audio, want):
-    from digiham_tpu.pipeline import DmrPipeline
-    from digiham_tpu.runtime.tracked_bank import TrackedChannelBank
+    from digiham_jax.pipeline import DmrPipeline
+    from digiham_jax.runtime.tracked_bank import TrackedChannelBank
     out = [b""]
     bank = TrackedChannelBank(
         DmrPipeline(channels=1, sps=SPS, n_centuries=2),
@@ -111,26 +104,38 @@ CASES = [
 ]
 
 
-@pytest.mark.parametrize("name,kw", CASES, ids=[c[0] for c in CASES])
-def test_impaired_dmr_decode_and_reference_parity(name, kw, tmp_path):
-    from digiham_tpu.protocols.dmr.phases import pack_dibits
+def _impaired_audio(kw):
+    from digiham_jax.protocols.dmr.phases import pack_dibits
     iq, payload = _tx()
-    want = pack_dibits(payload)
-    impaired = impair(iq, seed=11, **kw)
-    audio = _audio(impaired)
+    return _audio(impair(iq, seed=11, **kw)), pack_dibits(payload)
+
+
+@pytest.mark.parametrize("name,kw", CASES, ids=[c[0] for c in CASES])
+def test_impaired_dmr_decode(name, kw):
+    """Our chain still decodes nearly every expected voice frame against
+    the known TX payload (slot arbitration forwards the active slot)."""
+    audio, want = _impaired_audio(kw)
+    ours = _ours(audio, want)
+    assert ours >= N_FRAMES // 2 - 2, (name, ours)
+
+
+@pytest.mark.parametrize("name,kw", CASES, ids=[c[0] for c in CASES])
+def test_impaired_dmr_reference_parity(name, kw, tmp_path, ref_harness):
+    """Our decode count is never behind the compiled reference's on the
+    identical impaired audio."""
+    audio, want = _impaired_audio(kw)
     ours = _ours(audio, want)
     ref = _reference(audio, want, tmp_path)
-    expect = N_FRAMES // 2  # slot arbitration forwards the active slot
-    assert ours >= expect - 2, (name, ours, ref)
     assert ours >= ref - 1, f"{name}: ours {ours} behind reference {ref}"
 
 
-def test_clean_baseline(tmp_path):
-    """The unimpaired stream decodes every expected frame on both sides
-    (sanity anchor for the matrix above)."""
-    from digiham_tpu.protocols.dmr.phases import pack_dibits
-    iq, payload = _tx()
-    want = pack_dibits(payload)
-    audio = _audio(iq)
+def test_clean_baseline():
+    """The unimpaired stream decodes every expected frame (sanity anchor
+    for the matrix above)."""
+    audio, want = _impaired_audio({})
     assert _ours(audio, want) >= N_FRAMES // 2 - 1
+
+
+def test_clean_baseline_reference(tmp_path, ref_harness):
+    audio, want = _impaired_audio({})
     assert _reference(audio, want, tmp_path) >= N_FRAMES // 2 - 1

@@ -26,9 +26,9 @@ def _load():
 
 def test_multistream_latency_equals_single_bank():
     bl = _load()
-    from digiham_tpu.pipeline import DmrPipeline
-    from digiham_tpu.runtime.multistream import MultiStreamBank
-    from digiham_tpu.runtime.tracked_bank import TrackedChannelBank
+    from digiham_jax.pipeline import DmrPipeline
+    from digiham_jax.runtime.multistream import MultiStreamBank
+    from digiham_jax.runtime.tracked_bank import TrackedChannelBank
 
     channels, nc, block = 2, 2, 4800
     streams = [bl.synth_stream(9100 + c, n_bursts=2) for c in range(channels)]

@@ -3,9 +3,9 @@ cursors over many blocks (hours-equivalent of stream time)."""
 import numpy as np
 import pytest
 
-from digiham_tpu.pipeline import DmrPipeline
-from digiham_tpu.protocols.dmr import make_decoder
-from digiham_tpu.runtime.channel_bank import ChannelBank
+from digiham_jax.pipeline import DmrPipeline
+from digiham_jax.protocols.dmr import make_decoder
+from digiham_jax.runtime.channel_bank import ChannelBank
 
 from dmr_synth import voice_frame
 
@@ -48,7 +48,7 @@ def test_bank_bounded_over_many_blocks():
 
 def test_tracked_bank_bounded_under_drift():
     """TrackedChannelBank (sample path) under trackable clock drift."""
-    from digiham_tpu.runtime.tracked_bank import TrackedChannelBank
+    from digiham_jax.runtime.tracked_bank import TrackedChannelBank
     channels = 2
     payload = np.tile([1, 3, 0, 2], 27)
     frames = [voice_frame(s % 2, payload, sync=True) for s in range(40)]
@@ -80,8 +80,8 @@ def test_dstar_tracked_bank_bounded_on_noise():
     """Idle (pure-noise) D-Star channels must hold bounded dibit buffers:
     the hunt (incl. transient header-pending states) may never accumulate
     more than its lookahead plus one header span."""
-    from digiham_tpu.pipeline import FskPipeline
-    from digiham_tpu.runtime.tracked_bank import (DstarAdapter,
+    from digiham_jax.pipeline import FskPipeline
+    from digiham_jax.runtime.tracked_bank import (DstarAdapter,
                                                   TrackedChannelBank)
     rng = np.random.default_rng(3)
     samples = rng.normal(0, 400, (2, 600_000)).astype(np.float32)
@@ -96,8 +96,8 @@ def test_dstar_tracked_bank_bounded_on_noise():
 
 
 def test_pocsag_tracked_bank_bounded_on_noise():
-    from digiham_tpu.pipeline import FskPipeline
-    from digiham_tpu.runtime.tracked_bank import (PocsagAdapter,
+    from digiham_jax.pipeline import FskPipeline
+    from digiham_jax.runtime.tracked_bank import (PocsagAdapter,
                                                   TrackedChannelBank)
     rng = np.random.default_rng(4)
     samples = rng.normal(0, 400, (2, 1_200_000)).astype(np.float32)

@@ -4,7 +4,7 @@ import threading
 import numpy as np
 import pytest
 
-from digiham_tpu import native
+from digiham_jax import native
 
 
 def test_native_built():
@@ -34,7 +34,7 @@ class TestPacking:
         d = rng.integers(0, 4, 400).astype(np.uint8)
         packed = np.frombuffer(native.pack_dibits(d), np.uint8)
         # cross-check against the protocol-layer packer
-        from digiham_tpu.protocols.dmr.phases import pack_dibits as py_pack
+        from digiham_jax.protocols.dmr.phases import pack_dibits as py_pack
         assert packed.tobytes() == py_pack(d)
 
 

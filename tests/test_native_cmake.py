@@ -1,5 +1,5 @@
 """Distro-consumable packaging of the native host runtime: the CMake
-package (digiham_tpu/native/CMakeLists.txt — the equivalent of the
+package (digiham_jax/native/CMakeLists.txt — the equivalent of the
 reference's libdigiham CMake export, reference src/CMakeLists.txt:1-17)
 must build, install, and be consumable by a downstream C++ project via
 find_package, and the installed library's ABI must agree with the ctypes
@@ -12,7 +12,7 @@ import sys
 import pytest
 
 NATIVE = os.path.join(os.path.dirname(__file__), "..",
-                      "digiham_tpu", "native")
+                      "digiham_jax", "native")
 
 pytestmark = pytest.mark.skipif(
     shutil.which("cmake") is None or shutil.which("g++") is None,
@@ -74,7 +74,7 @@ def test_cmake_package_builds_installs_and_serves_a_consumer(tmp_path):
                   if (prefix / d / "cmake" / "DigihamTpuNative"
                       / "DigihamTpuNativeConfig.cmake").exists())
     assert (prefix / libdir / "pkgconfig"
-            / "digiham_tpu_native.pc").exists()
+            / "digiham_jax_native.pc").exists()
 
     consumer = tmp_path / "consumer"
     consumer.mkdir()

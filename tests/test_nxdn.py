@@ -4,8 +4,8 @@ vectors from the NXDN Common Air Interface Test document
 import numpy as np
 import pytest
 
-from digiham_tpu.protocols.nxdn import make_decoder
-from digiham_tpu.protocols.nxdn.components import (
+from digiham_jax.protocols.nxdn import make_decoder
+from digiham_jax.protocols.nxdn.components import (
     CALL_TYPE_CONFERENCE,
     Facch1,
     Lich,
@@ -18,7 +18,7 @@ from digiham_tpu.protocols.nxdn.components import (
     Scrambler,
     USC_TYPE_SACCH_SF,
 )
-from digiham_tpu.runtime.meta import PipelineMetaWriter
+from digiham_jax.runtime.meta import PipelineMetaWriter
 
 from nxdn_synth import (
     encode_facch1,

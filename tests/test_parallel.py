@@ -5,8 +5,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from digiham_tpu.dsp.rrc import WIDE_RRC, RrcState, rrc_filter_block
-from digiham_tpu.parallel import (
+from digiham_jax.dsp.rrc import WIDE_RRC, RrcState, rrc_filter_block
+from digiham_jax.parallel import (
     make_mesh,
     sharded_pipeline_step,
     sharded_rrc_filter,
@@ -61,9 +61,9 @@ class TestShardedPipeline:
 class TestShardedFsk:
     def test_dstar_step_matches_single_device(self, devices):
         """Channel+time sharded 2FSK step == unsharded bulk decode."""
-        from digiham_tpu.dsp.demod import demod_init, fsk_demod_block
-        from digiham_tpu.parallel import make_mesh, sharded_fsk_step
-        from digiham_tpu.pipeline.fsk import dstar_decode_frames
+        from digiham_jax.dsp.demod import demod_init, fsk_demod_block
+        from digiham_jax.parallel import make_mesh, sharded_fsk_step
+        from digiham_jax.pipeline.fsk import dstar_decode_frames
 
         mesh = make_mesh(n_channel_shards=2, n_time_shards=4)
         rng = np.random.default_rng(5)
@@ -88,7 +88,7 @@ class TestShardedFsk:
             np.testing.assert_array_equal(got, want)
 
     def test_pocsag_step_compiles_and_runs(self, devices):
-        from digiham_tpu.parallel import make_mesh, sharded_fsk_step
+        from digiham_jax.parallel import make_mesh, sharded_fsk_step
 
         mesh = make_mesh(n_channel_shards=4, n_time_shards=2)
         rng = np.random.default_rng(6)
@@ -106,10 +106,10 @@ class TestShardedValueEquivalence:
     mesh steps, mirroring the existing D-Star check."""
 
     def test_dmr_step_matches_single_device(self, devices):
-        from digiham_tpu.dsp.demod import demod_init, gfsk_demod_block
-        from digiham_tpu.pipeline.dmr import (dmr_decode_frames,
+        from digiham_jax.dsp.demod import demod_init, gfsk_demod_block
+        from digiham_jax.pipeline.dmr import (dmr_decode_frames,
                                               dmr_sync_correlate)
-        from digiham_tpu.protocols.dmr.phases import FRAME_SIZE
+        from digiham_jax.protocols.dmr.phases import FRAME_SIZE
 
         mesh = make_mesh(n_channel_shards=2, n_time_shards=4)
         rng = np.random.default_rng(21)
@@ -139,11 +139,11 @@ class TestShardedValueEquivalence:
         np.testing.assert_array_equal(np.asarray(hits), want_hits)
 
     def test_pocsag_step_matches_single_device(self, devices):
-        from digiham_tpu.dsp.demod import demod_init, fsk_demod_block
-        from digiham_tpu.parallel import sharded_fsk_step
-        from digiham_tpu.pipeline.fsk import (bit_sync_correlate,
+        from digiham_jax.dsp.demod import demod_init, fsk_demod_block
+        from digiham_jax.parallel import sharded_fsk_step
+        from digiham_jax.pipeline.fsk import (bit_sync_correlate,
                                               pocsag_decode_frames)
-        from digiham_tpu.protocols.pocsag import SYNC_PATTERN
+        from digiham_jax.protocols.pocsag import SYNC_PATTERN
 
         mesh = make_mesh(n_channel_shards=4, n_time_shards=2)
         rng = np.random.default_rng(22)
@@ -173,11 +173,11 @@ class TestShardedGfskProtocols:
 
     def _run(self, protocol, sps, n_cent, devices):
         import numpy as np
-        from digiham_tpu.dsp.demod import demod_init, gfsk_demod_block
-        from digiham_tpu.dsp.rrc import (NARROW_RRC, WIDE_RRC, RrcState,
+        from digiham_jax.dsp.demod import demod_init, gfsk_demod_block
+        from digiham_jax.dsp.rrc import (NARROW_RRC, WIDE_RRC, RrcState,
                                          rrc_filter_block)
-        from digiham_tpu.parallel import make_mesh, sharded_gfsk_step
-        from digiham_tpu.parallel.sharded import _gfsk_config
+        from digiham_jax.parallel import make_mesh, sharded_gfsk_step
+        from digiham_jax.parallel.sharded import _gfsk_config
 
         design, sps_, frame_size, sync_fn, decode_fn = \
             _gfsk_config(protocol)

@@ -4,17 +4,17 @@ import pytest
 
 import jax.numpy as jnp
 
-from digiham_tpu.pipeline.dmr import (
+from digiham_jax.pipeline.dmr import (
     DmrPipeline,
     dmr_decode_frames,
     dmr_sync_correlate,
 )
-from digiham_tpu.protocols.dmr.components import (
+from digiham_jax.protocols.dmr.components import (
     DATA_TYPE_VOICE_LC,
     Cach,
     SlotType,
 )
-from digiham_tpu.protocols.dmr.phases import (
+from digiham_jax.protocols.dmr.phases import (
     BS_VOICE_SYNC,
     FRAME_SIZE,
     get_sync_type,

@@ -4,8 +4,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from digiham_tpu.pipeline import DmrPipeline
-from digiham_tpu.protocols.dmr.phases import pack_dibits
+from digiham_jax.pipeline import DmrPipeline
+from digiham_jax.protocols.dmr.phases import pack_dibits
 
 from dmr_synth import voice_frame
 
@@ -34,7 +34,7 @@ def test_step_iq_decodes_dmr():
         jnp.asarray(iq_in), jnp.ones((1,), jnp.complex64), state)
     rx = np.asarray(out["dibits"])[0]
     # the voice payload should appear bit-exact in the decoded stream
-    from digiham_tpu.protocols.dmr import make_decoder
+    from digiham_jax.protocols.dmr import make_decoder
     decoded = make_decoder().process(rx)
     assert pack_dibits(payload) in decoded
     assert carry.shape == (1,)

@@ -4,19 +4,19 @@ import pytest
 
 import jax.numpy as jnp
 
-from digiham_tpu.pipeline.ysf import (
+from digiham_jax.pipeline.ysf import (
     decode_fich_batch,
     decode_vd2_voice_batch,
     ysf_decode_frames,
     ysf_sync_correlate,
 )
-from digiham_tpu.pipeline.nxdn import (
+from digiham_jax.pipeline.nxdn import (
     decode_facch1_batch,
     decode_sacch_batch,
     nxdn_sync_correlate,
 )
-from digiham_tpu.protocols.ysf.fich import Fich, encode_fich
-from digiham_tpu.protocols.ysf.phases import decode_v2_voice, YSF_SYNC
+from digiham_jax.protocols.ysf.fich import Fich, encode_fich
+from digiham_jax.protocols.ysf.phases import decode_v2_voice, YSF_SYNC
 
 from ysf_synth import encode_v2_voice, make_fich_word, vd2_frame
 from nxdn_synth import (
@@ -24,11 +24,11 @@ from nxdn_synth import (
     encode_sacch_unit,
     vcall_superframe_bytes,
 )
-from digiham_tpu.protocols.nxdn.components import (
+from digiham_jax.protocols.nxdn.components import (
     MESSAGE_TYPE_TX_RELEASE,
     Scrambler,
 )
-from digiham_tpu.protocols.nxdn.phases import FRAME_SYNC
+from digiham_jax.protocols.nxdn.phases import FRAME_SYNC
 
 
 class TestYsfBatch:

@@ -4,9 +4,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from digiham_tpu.fec.codes import BCH_31_21
-from digiham_tpu.protocols import pocsag
-from digiham_tpu.protocols.pocsag import (
+from digiham_jax.fec.codes import BCH_31_21
+from digiham_jax.protocols import pocsag
+from digiham_jax.protocols.pocsag import (
     CODEWORDS_PER_SYNC,
     IDLE_CODEWORD,
     SYNC_PATTERN,
@@ -15,8 +15,8 @@ from digiham_tpu.protocols.pocsag import (
     parse_codewords,
     sync_distances,
 )
-from digiham_tpu.runtime.decoder import Output
-from digiham_tpu.runtime.meta import StringSerializer
+from digiham_jax.runtime.decoder import Output
+from digiham_jax.runtime.meta import StringSerializer
 
 
 def u32_bits(word):
@@ -119,7 +119,7 @@ class TestSyncSearch:
 
 class TestEndToEnd:
     def test_alpha_message(self):
-        text = "HELLO TPU WORLD"
+        text = "HELLO BANK WORLD"
         addr = 0x1234
         frame_pos = 2
         cws = [IDLE_CODEWORD] * (frame_pos * 2)
@@ -225,7 +225,7 @@ class TestNumericPath:
     the dead path cannot rot."""
 
     def test_numeric_message_end_to_end(self, monkeypatch):
-        from digiham_tpu.protocols import pocsag as pmod
+        from digiham_jax.protocols import pocsag as pmod
 
         digits = "0123456789*U -)("
         cws = [address_codeword(321, 0)]
@@ -239,7 +239,7 @@ class TestNumericPath:
         assert f"message:{digits}".encode().rstrip() in out
 
     def test_numeric_closed_by_default(self):
-        from digiham_tpu.protocols import pocsag as pmod
+        from digiham_jax.protocols import pocsag as pmod
         digits = "5551234"
         cws = [address_codeword(321, 0)]
         cws += [data_codeword(p) for p in numeric_payloads(digits)]

@@ -2,7 +2,7 @@
 real protobuf implementation (protoc + google.protobuf).
 
 The schema in tests/proto/codecserver.proto is reconstructed from the
-field tables documented in digiham_tpu/codec/proto.py (which follow
+field tables documented in digiham_jax/codec/proto.py (which follow
 codecserver's proto/*.proto). Byte-equality against protobuf's
 serializer validates the entire wire layer — varints, tags, packed
 repeated enums, deterministic maps, nested messages, Any packing — so
@@ -34,7 +34,7 @@ def pb(tmp_path_factory):
 
 
 def test_handshake_bytes(pb):
-    from digiham_tpu.codec import proto as p
+    from digiham_jax.codec import proto as p
     ours = p.Handshake("codecserver 0.2", "1.0").serialize()
     theirs = pb.Handshake(serverVersion="codecserver 0.2",
                           protocolVersion="1.0").SerializeToString()
@@ -44,7 +44,7 @@ def test_handshake_bytes(pb):
 
 
 def test_request_with_settings_bytes(pb):
-    from digiham_tpu.codec import proto as p
+    from digiham_jax.codec import proto as p
     ours = p.Request("ambe", p.Settings(
         directions=[p.DIRECTION_DECODE],
         args={"index": "33", "ratep": "0130:0763"})).serialize()
@@ -60,7 +60,7 @@ def test_request_with_settings_bytes(pb):
 
 
 def test_response_framing_bytes(pb):
-    from digiham_tpu.codec import proto as p
+    from digiham_jax.codec import proto as p
     ours = p.Response(p.STATUS_OK, framing=p.FramingHint(9, 320))
     msg = pb.Response(result=pb.Response.OK,
                       framing=pb.FramingHint(channelBytes=9,
@@ -71,7 +71,7 @@ def test_response_framing_bytes(pb):
 
 
 def test_data_and_check_bytes(pb):
-    from digiham_tpu.codec import proto as p
+    from digiham_jax.codec import proto as p
     payload = bytes(range(9))
     assert (p.ChannelData(payload).serialize()
             == pb.ChannelData(data=payload).SerializeToString())
@@ -91,7 +91,7 @@ def test_data_and_check_bytes(pb):
 def test_any_packing_bytes(pb):
     from google.protobuf import any_pb2
 
-    from digiham_tpu.codec import proto as p
+    from digiham_jax.codec import proto as p
     ours = p.pack_any(p.Check("ambe"))
     a = any_pb2.Any()
     a.Pack(pb.Check(codec="ambe"))

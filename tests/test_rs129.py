@@ -10,7 +10,7 @@ import pytest
 
 sys.path.insert(0, os.path.dirname(__file__))
 
-from digiham_tpu.fec import rs129
+from digiham_jax.fec import rs129
 
 
 def test_generator_derivation():
@@ -52,8 +52,8 @@ def test_single_error_corrected_double_detected():
 
 def _decode_frames(frames, env):
     """Drive data+voice frames through the decoder with env patches."""
-    from digiham_tpu.protocols.dmr import make_decoder
-    from digiham_tpu.runtime.meta import PipelineMetaWriter
+    from digiham_jax.protocols.dmr import make_decoder
+    from digiham_jax.runtime.meta import PipelineMetaWriter
 
     old = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
@@ -80,8 +80,8 @@ def _stream(corrupt_lc_bits=0):
         # corrupt LC BYTES pre-BPTC (BPTC stays valid) with STALE parity
         # (computed for the original lc9): the RS layer is the only
         # check that can catch this — exactly the reference's blind spot
-        from digiham_tpu.fec import bptc, rs129 as rs
-        from digiham_tpu.protocols.dmr.phases import (CACH_SIZE,
+        from digiham_jax.fec import bptc, rs129 as rs
+        from digiham_jax.protocols.dmr.phases import (CACH_SIZE,
                                                       SYNC_SIZE)
         bad = bytearray(lc9)
         bad[3] ^= 0x41  # corrupt the target id

@@ -4,8 +4,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from digiham_tpu.runtime.metrics import MetricsRegistry, StageMeter
-from digiham_tpu.runtime.checkpoint import (
+from digiham_jax.runtime.metrics import MetricsRegistry, StageMeter
+from digiham_jax.runtime.checkpoint import (
     load_decoder,
     load_state,
     save_decoder,
@@ -33,7 +33,7 @@ class TestMetrics:
 
 class TestCheckpoint:
     def test_demod_state_roundtrip(self):
-        from digiham_tpu.dsp.demod import demod_init, gfsk_demod_block
+        from digiham_jax.dsp.demod import demod_init, gfsk_demod_block
         state = demod_init(2)
         rng = np.random.default_rng(0)
         x = jnp.asarray(rng.normal(0, 100, (2, 1020)).astype(np.float32))
@@ -47,7 +47,7 @@ class TestCheckpoint:
 
     def test_resume_is_bit_exact(self):
         """Decode continues identically after a snapshot/restore."""
-        from digiham_tpu.dsp.demod import demod_init, gfsk_demod_block
+        from digiham_jax.dsp.demod import demod_init, gfsk_demod_block
         rng = np.random.default_rng(1)
         levels = np.array([1.0, 3.0, -1.0, -3.0]) * 300
         tx = rng.integers(0, 4, 450)
@@ -62,7 +62,7 @@ class TestCheckpoint:
         np.testing.assert_array_equal(np.asarray(b1), np.asarray(b2))
 
     def test_decoder_snapshot(self):
-        from digiham_tpu.protocols.dmr import make_decoder
+        from digiham_jax.protocols.dmr import make_decoder
         import sys, os
         sys.path.insert(0, os.path.dirname(__file__))
         from dmr_synth import voice_frame
@@ -80,11 +80,11 @@ class TestCheckpoint:
 
 class TestSyndromeTool:
     def test_all_codes_self_check(self):
-        from digiham_tpu.fec.syndrome_tool import main
+        from digiham_jax.fec.syndrome_tool import main
         assert main([]) == 0
 
     def test_dump_one(self, capsys):
-        from digiham_tpu.fec.syndrome_tool import main
+        from digiham_jax.fec.syndrome_tool import main
         assert main(["--dump", "hamming_7_4"]) == 0
         out = capsys.readouterr().out
         assert out.count("{") >= 7  # at least the single-bit patterns
@@ -96,9 +96,9 @@ class TestMetricsWiring:
 
     def test_stream_driver_feeds_meter(self):
         import numpy as np
-        from digiham_tpu.dsp.demod import demod_init, gfsk_demod_block
-        from digiham_tpu.runtime.metrics import REGISTRY
-        from digiham_tpu.runtime.stream import StreamDriver
+        from digiham_jax.dsp.demod import demod_init, gfsk_demod_block
+        from digiham_jax.runtime.metrics import REGISTRY
+        from digiham_jax.runtime.stream import StreamDriver
 
         def fn(block, state, n_centuries):
             return gfsk_demod_block(block, state, n_centuries, 10)
@@ -112,9 +112,9 @@ class TestMetricsWiring:
 
     def test_tracked_bank_feeds_meter_and_reports(self, capsys):
         import numpy as np
-        from digiham_tpu.pipeline import DmrPipeline
-        from digiham_tpu.runtime.metrics import REGISTRY
-        from digiham_tpu.runtime.tracked_bank import TrackedChannelBank
+        from digiham_jax.pipeline import DmrPipeline
+        from digiham_jax.runtime.metrics import REGISTRY
+        from digiham_jax.runtime.tracked_bank import TrackedChannelBank
 
         bank = TrackedChannelBank(
             DmrPipeline(channels=1, sps=10, n_centuries=2, use_rrc=False))
@@ -134,7 +134,7 @@ class TestMetricsWiring:
     def test_metrics_every_env_read_lazily(self, monkeypatch):
         # setting DIGIHAM_METRICS_EVERY *after* import must take effect
         # (round-2 advisor: it used to be read once at module import)
-        from digiham_tpu.runtime.metrics import MetricsRegistry
+        from digiham_jax.runtime.metrics import MetricsRegistry
 
         reg = MetricsRegistry()
         lines = []
@@ -157,7 +157,7 @@ class TestMetricsWiring:
 
 class TestEnvFlag:
     def test_strict_parsing(self, monkeypatch):
-        from digiham_tpu.utils import env_flag
+        from digiham_jax.utils import env_flag
 
         monkeypatch.delenv("DIGIHAM_TEST_FLAG", raising=False)
         assert env_flag("DIGIHAM_TEST_FLAG") is None

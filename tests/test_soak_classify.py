@@ -25,7 +25,7 @@ def test_healthy_window_is_unclassified():
     """An RRC-shaped noisy-but-comfortable stream has a distinct timing
     valley and wide slicer margins: a divergence there must surface as
     UNCLASSIFIED (a real bug), not be explained away as knife-edge."""
-    from digiham_tpu.dsp.rrc import WIDE_RRC
+    from digiham_jax.dsp.rrc import WIDE_RRC
     raw, _ = _stream()
     filt = rrc_np(raw, WIDE_RRC)
     r = classify_window(filt, 400, 544, sps=SPS)
@@ -61,7 +61,7 @@ def test_flat_valley_tie_detected():
 def test_timing_settle_class():
     """A divergence before the first timing update is the documented
     acquisition class (given margins/valley look healthy)."""
-    from digiham_tpu.dsp.rrc import WIDE_RRC
+    from digiham_jax.dsp.rrc import WIDE_RRC
     raw, _ = _stream(seed=9)
     filt = rrc_np(raw, WIDE_RRC)
     r = classify_window(filt, 0, 80, sps=SPS)

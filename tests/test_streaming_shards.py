@@ -13,16 +13,16 @@ import pytest
 
 import jax
 
-from digiham_tpu.parallel import make_mesh
-from digiham_tpu.parallel.streaming import (
+from digiham_jax.parallel import make_mesh
+from digiham_jax.parallel.streaming import (
     TimeShardedDmrPipeline,
     TimeShardedDmrStream,
     TimeShardedPipeline,
     TimeShardedStream,
     _protocol_config,
 )
-from digiham_tpu.pipeline.dmr import DmrPipeline
-from digiham_tpu.runtime.channel_bank import ChannelBank
+from digiham_jax.pipeline.dmr import DmrPipeline
+from digiham_jax.runtime.channel_bank import ChannelBank
 
 FRAME = 144
 SYNC = 24
@@ -41,12 +41,12 @@ def _single_device_pipeline(protocol, C, n_centuries):
     if protocol == "dmr":
         return DmrPipeline(channels=C, sps=10, n_centuries=n_centuries)
     if protocol == "ysf":
-        from digiham_tpu.pipeline.ysf import YsfPipeline
+        from digiham_jax.pipeline.ysf import YsfPipeline
         return YsfPipeline(channels=C, sps=10, n_centuries=n_centuries)
     if protocol == "nxdn":
-        from digiham_tpu.pipeline.nxdn import NxdnPipeline
+        from digiham_jax.pipeline.nxdn import NxdnPipeline
         return NxdnPipeline(channels=C, sps=20, n_centuries=n_centuries)
-    from digiham_tpu.pipeline.fsk import FskPipeline
+    from digiham_jax.pipeline.fsk import FskPipeline
     return FskPipeline(C, protocol, n_centuries=n_centuries)
 
 
@@ -184,7 +184,7 @@ def test_streamed_time_shards_bitexact(devices, n_time):
 
 def test_streamed_time_shards_no_rrc(devices):
     """Pure carry-chain isolation: no filter stage, 4 shards, 3 steps
-    (the third step exercises a carry whose pos has gone negative)."""
+    (the third step starts channels at origins the drift has parted)."""
     _run_and_compare("dmr", 4, use_rrc=False, n_steps=3, seed=7, cps=36)
 
 

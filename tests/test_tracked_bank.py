@@ -4,10 +4,10 @@ same dibit streams."""
 import numpy as np
 import pytest
 
-from digiham_tpu.pipeline import DmrPipeline
-from digiham_tpu.protocols.dmr import make_decoder
-from digiham_tpu.runtime.meta import PipelineMetaWriter
-from digiham_tpu.runtime.tracked_bank import TrackedChannelBank
+from digiham_jax.pipeline import DmrPipeline
+from digiham_jax.protocols.dmr import make_decoder
+from digiham_jax.runtime.meta import PipelineMetaWriter
+from digiham_jax.runtime.tracked_bank import TrackedChannelBank
 
 from dmr_synth import data_frame, group_lc, voice_frame, voice_superframe
 
@@ -113,7 +113,7 @@ def test_full_sample_path_smoke():
             c, outputs[c] + d))
     for lo in range(0, samples.shape[1], 8192):
         bank.push(samples[:, lo:lo + 8192])
-    from digiham_tpu.protocols.dmr.phases import pack_dibits
+    from digiham_jax.protocols.dmr.phases import pack_dibits
     for c in range(4):
         assert pack_dibits(payload) in outputs[c]
 
@@ -122,7 +122,7 @@ def test_full_sample_path_smoke():
 def test_equivalence_with_device_gated_hunting(seed):
     """The device-gated fast hunt path (_fast_skip) must not change any
     output: feed block_hits computed from the dense correlation."""
-    from digiham_tpu.pipeline.dmr import dmr_sync_correlate
+    from digiham_jax.pipeline.dmr import dmr_sync_correlate
     import jax.numpy as jnp
 
     streams = make_streams(seed)
@@ -154,7 +154,7 @@ def test_equivalence_with_device_gated_hunting(seed):
 
 
 def test_gated_noise_equivalence():
-    from digiham_tpu.pipeline.dmr import dmr_sync_correlate
+    from digiham_jax.pipeline.dmr import dmr_sync_correlate
     import jax.numpy as jnp
 
     rng = np.random.default_rng(123)

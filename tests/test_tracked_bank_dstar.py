@@ -4,11 +4,11 @@ per-channel symbol-domain Decoder (hunt incl. 660-bit header decode,
 import numpy as np
 import pytest
 
-from digiham_tpu.pipeline import FskPipeline
-from digiham_tpu.protocols.dstar import make_decoder
-from digiham_tpu.protocols.dstar.phases import TERMINATOR, VOICE_SYNC
-from digiham_tpu.runtime.meta import PipelineMetaWriter
-from digiham_tpu.runtime.tracked_bank import DstarAdapter, TrackedChannelBank
+from digiham_jax.pipeline import FskPipeline
+from digiham_jax.protocols.dstar import make_decoder
+from digiham_jax.protocols.dstar.phases import TERMINATOR, VOICE_SYNC
+from digiham_jax.runtime.meta import PipelineMetaWriter
+from digiham_jax.runtime.tracked_bank import DstarAdapter, TrackedChannelBank
 
 from test_dstar import (
     bit_sync_preamble,
@@ -82,8 +82,8 @@ def tracked_path(streams, chunk=700, gated=False):
     for lo in range(0, streams.shape[1], chunk):
         blk = streams[:, lo:lo + chunk].astype(np.uint8)
         if gated and blk.shape[1] > 32:
-            from digiham_tpu.pipeline.fsk import bit_sync_correlate
-            from digiham_tpu.protocols.dstar.phases import HEADER_SYNC
+            from digiham_jax.pipeline.fsk import bit_sync_correlate
+            from digiham_jax.protocols.dstar.phases import HEADER_SYNC
             import jax.numpy as jnp
             b = jnp.asarray(blk)
             hits = adapter.block_hits({
@@ -150,7 +150,7 @@ def test_full_sample_path_smoke():
 def test_half_terminator_equivalence():
     """Half-length terminator (24 data bits only, dstar_phase.cpp:96-100)
     through the tracked bank."""
-    from digiham_tpu.protocols.dstar.phases import TERMINATOR
+    from digiham_jax.protocols.dstar.phases import TERMINATOR
     parts = full_voice_stream(6)
     half_term = np.concatenate([
         np.unpackbits(np.frombuffer(b"\x55" * 9, np.uint8),

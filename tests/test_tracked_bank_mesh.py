@@ -7,10 +7,10 @@ import pytest
 
 import jax
 
-from digiham_tpu.parallel import make_mesh
-from digiham_tpu.pipeline import DmrPipeline
-from digiham_tpu.runtime.meta import PipelineMetaWriter
-from digiham_tpu.runtime.tracked_bank import TrackedChannelBank
+from digiham_jax.parallel import make_mesh
+from digiham_jax.pipeline import DmrPipeline
+from digiham_jax.runtime.meta import PipelineMetaWriter
+from digiham_jax.runtime.tracked_bank import TrackedChannelBank
 
 from test_tracked_bank import LEVELS, make_streams, reference_path
 from dmr_synth import voice_frame
@@ -88,49 +88,36 @@ def test_snapshot_restore_on_mesh(mesh):
         assert outputs[c][pre[c]:] == outputs2[c]
 
 
-def test_mesh_bank_pins_viterbi_off_pallas(mesh):
-    """The mesh bank's batched frame-field decode runs under GSPMD
-    (jit + NamedSharding), which cannot auto-partition Mosaic custom
-    calls — the bank must pass impl="gspmd" to the adapter so the
-    YSF/NXDN Viterbi inside decode_fields takes the XLA scan. A spy
-    adapter records the impl actually used on both paths."""
-    from digiham_tpu.pipeline import YsfPipeline
-    from digiham_tpu.runtime.tracked_bank import YsfAdapter
+def test_mesh_bank_steps_plain_xla(mesh):
+    """The mesh bank's pipeline step runs under GSPMD (jit +
+    NamedSharding), which cannot partition the GPU demod kernel's custom
+    call — the bank must step with impl="xla"; the one-device bank keeps
+    the default. A spy pipeline records the impl of every step."""
+    impls = []
 
-    from ysf_synth import header_frame, vd2_frame
+    class SpyPipeline(DmrPipeline):
+        def step(self, samples, state, impl=None):
+            impls.append(impl)
+            return super().step(samples, state, impl=impl)
 
-    class SpyAdapter(YsfAdapter):
-        def __init__(self):
-            self.impls = []
-
-        def decode_fields(self, frames, jnp, impl="auto"):
-            self.impls.append(impl)
-            return super().decode_fields(frames, jnp, impl=impl)
-
-    rng = np.random.default_rng(2)
-    parts = [rng.integers(0, 4, 40),
-             header_frame(b"DEST", b"SRC ", b"DOWN", b"UP  ")]
-    for i in range(6):
-        parts.append(vd2_frame(i % 8, b"MESHIMPL  "))
-    dibits = np.stack([np.concatenate(
-        [np.asarray(p, np.uint8) for p in parts])] * 4)
-
-    for use_mesh, want in ((None, "auto"), (mesh, "gspmd")):
-        spy = SpyAdapter()
+    C = 4
+    noise = np.random.default_rng(3).normal(0, 0.3, (C, 4200)).astype(
+        np.float32)
+    for use_mesh, want in ((None, None), (mesh, "xla")):
+        impls.clear()
         bank = TrackedChannelBank(
-            YsfPipeline(channels=4, sps=10, n_centuries=5),
-            adapter=spy, mesh=use_mesh)
-        bank.push_dibits(dibits)
-        assert spy.impls and set(spy.impls) == {want}, (use_mesh,
-                                                        spy.impls)
+            SpyPipeline(channels=C, sps=10, n_centuries=2),
+            mesh=use_mesh)
+        bank.push(noise)
+        assert impls and set(impls) == {want}, (use_mesh, impls)
 
 
 def test_nxdn_mesh_equals_unsharded(mesh):
-    """NXDN mesh bank (narrow-RRC gspmd step + SACCH/FACCH1 Viterbi in
-    the batched field decode, routed impl=\"gspmd\") emits bytes and
-    events identical to the unsharded bank."""
-    from digiham_tpu.pipeline import NxdnPipeline
-    from digiham_tpu.runtime.tracked_bank import NxdnAdapter
+    """NXDN mesh bank (narrow-RRC plain-XLA step + SACCH/FACCH1 Viterbi
+    in the batched field decode) emits bytes and events identical to the
+    unsharded bank."""
+    from digiham_jax.pipeline import NxdnPipeline
+    from digiham_jax.runtime.tracked_bank import NxdnAdapter
 
     from test_tracked_bank_nxdn import make_streams as nxdn_streams
 

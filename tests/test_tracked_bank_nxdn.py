@@ -2,14 +2,14 @@
 import numpy as np
 import pytest
 
-from digiham_tpu.pipeline import NxdnPipeline
-from digiham_tpu.protocols.nxdn import make_decoder
-from digiham_tpu.protocols.nxdn.components import (
+from digiham_jax.pipeline import NxdnPipeline
+from digiham_jax.protocols.nxdn import make_decoder
+from digiham_jax.protocols.nxdn.components import (
     MESSAGE_TYPE_IDLE,
     MESSAGE_TYPE_TX_RELEASE,
 )
-from digiham_tpu.runtime.meta import PipelineMetaWriter
-from digiham_tpu.runtime.tracked_bank import NxdnAdapter, TrackedChannelBank
+from digiham_jax.runtime.meta import PipelineMetaWriter
+from digiham_jax.runtime.tracked_bank import NxdnAdapter, TrackedChannelBank
 
 from nxdn_synth import (
     encode_facch1,

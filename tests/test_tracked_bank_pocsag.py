@@ -3,9 +3,9 @@ Decoder; the per-codeword host BCH moves to one batched device call."""
 import numpy as np
 import pytest
 
-from digiham_tpu.pipeline import FskPipeline
-from digiham_tpu.protocols import pocsag
-from digiham_tpu.runtime.tracked_bank import (
+from digiham_jax.pipeline import FskPipeline
+from digiham_jax.protocols import pocsag
+from digiham_jax.runtime.tracked_bank import (
     PocsagAdapter,
     TrackedChannelBank,
 )
@@ -78,7 +78,7 @@ def tracked_path(streams, chunk=501, gated=False):
     for lo in range(0, streams.shape[1], chunk):
         blk = streams[:, lo:lo + chunk].astype(np.uint8)
         if gated and blk.shape[1] > 32:
-            from digiham_tpu.pipeline.fsk import bit_sync_correlate
+            from digiham_jax.pipeline.fsk import bit_sync_correlate
             import jax.numpy as jnp
             hits = adapter.block_hits({"sync_dist_preamble":
                 bit_sync_correlate(jnp.asarray(blk),
@@ -130,7 +130,7 @@ def test_noise_equivalence():
 def test_full_sample_path_smoke():
     """Samples -> inverted 2FSK demod (40 sps) -> tracked bank."""
     cws = [address_codeword(4242, 3)]
-    cws += [data_codeword(p) for p in alpha_payloads("TPU BANK")]
+    cws += [data_codeword(p) for p in alpha_payloads("FSK BANK")]
     bits = np.concatenate([build_stream(cws), np.zeros(200, np.uint8)])
     levels = np.array([1.0, -1.0], np.float32)  # inverted mapping
     samples = np.stack(
@@ -143,7 +143,7 @@ def test_full_sample_path_smoke():
     for lo in range(0, samples.shape[1], 8192):
         bank.push(samples[:, lo:lo + 8192])
     for c in range(2):
-        assert b"message:TPU BANK" in outputs[c]
+        assert b"message:FSK BANK" in outputs[c]
 
 
 @pytest.mark.parametrize("sps", [20, 40, 94])

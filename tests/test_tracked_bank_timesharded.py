@@ -7,11 +7,11 @@ import pytest
 
 import jax
 
-from digiham_tpu.parallel import make_mesh
-from digiham_tpu.parallel.streaming import TimeShardedPipeline
-from digiham_tpu.pipeline import DmrPipeline
-from digiham_tpu.runtime.meta import PipelineMetaWriter
-from digiham_tpu.runtime.tracked_bank import (
+from digiham_jax.parallel import make_mesh
+from digiham_jax.parallel.streaming import TimeShardedPipeline
+from digiham_jax.pipeline import DmrPipeline
+from digiham_jax.runtime.meta import PipelineMetaWriter
+from digiham_jax.runtime.tracked_bank import (
     TimeShardedTrackedBank,
     TrackedChannelBank,
 )
@@ -29,9 +29,10 @@ def mesh():
     return make_mesh(n_channel_shards=2, n_time_shards=2)
 
 
-def _sharded_bank(mesh, cps=36):
+def _sharded_bank(mesh, cps=36, drift_budget=None):
     sp = TimeShardedPipeline(mesh, channels=C, protocol="dmr",
-                             centuries_per_shard=cps)
+                             centuries_per_shard=cps,
+                             drift_budget=drift_budget)
     outputs = {c: b"" for c in range(C)}
     bank = TimeShardedTrackedBank(
         sp, on_output=lambda c, d: outputs.__setitem__(
@@ -110,8 +111,8 @@ def test_timesharded_bank_snapshot_restore(mesh):
 def test_timesharded_bank_dstar_equals_unsharded(mesh):
     """The 2FSK bit-domain path (no RRC) with the lookahead-carrying
     D-Star adapter: header hunt + voice tracking byte/event parity."""
-    from digiham_tpu.pipeline import FskPipeline
-    from digiham_tpu.runtime.tracked_bank import DstarAdapter
+    from digiham_jax.pipeline import FskPipeline
+    from digiham_jax.runtime.tracked_bank import DstarAdapter
 
     from test_dstar import full_voice_stream
 
@@ -206,8 +207,8 @@ def _run_parity(mesh, samples, make_sharded, make_plain,
 def test_timesharded_bank_ysf_equals_unsharded(mesh):
     """YSF (4FSK wide-RRC, 480-dibit frames) through the time-sharded
     tracker bank: byte/event parity incl. FICH cache + DCH metadata."""
-    from digiham_tpu.pipeline import YsfPipeline
-    from digiham_tpu.runtime.tracked_bank import YsfAdapter
+    from digiham_jax.pipeline import YsfPipeline
+    from digiham_jax.runtime.tracked_bank import YsfAdapter
     from ysf_synth import header_frame, terminator_frame, vd2_frame
 
     rng = np.random.default_rng(11)
@@ -235,8 +236,8 @@ def test_timesharded_bank_ysf_equals_unsharded(mesh):
 def test_timesharded_bank_nxdn_equals_unsharded(mesh):
     """NXDN (4FSK narrow-RRC halo, sps=20) through the time-sharded
     tracker bank: SACCH superframe + VCALL metadata parity."""
-    from digiham_tpu.pipeline import NxdnPipeline
-    from digiham_tpu.runtime.tracked_bank import NxdnAdapter
+    from digiham_jax.pipeline import NxdnPipeline
+    from digiham_jax.runtime.tracked_bank import NxdnAdapter
     from nxdn_synth import (encode_sacch_unit, nxdn_frame,
                             vcall_superframe_bytes, voice_slot_dibits)
 
@@ -269,8 +270,8 @@ def test_timesharded_bank_nxdn_equals_unsharded(mesh):
 def test_timesharded_bank_pocsag_equals_unsharded(mesh):
     """POCSAG (inverted 2FSK, sps=40, bit domain, serialized-to-stdout
     output) through the time-sharded tracker bank."""
-    from digiham_tpu.pipeline import FskPipeline
-    from digiham_tpu.runtime.tracked_bank import PocsagAdapter
+    from digiham_jax.pipeline import FskPipeline
+    from digiham_jax.runtime.tracked_bank import PocsagAdapter
     from test_pocsag import (address_codeword, alpha_payloads,
                              build_stream, data_codeword)
 
@@ -300,16 +301,16 @@ def test_timesharded_bank_pocsag_equals_unsharded(mesh):
 
 
 def test_timesharded_bank_clock_skew_recentering(mesh):
-    """Real streams carry clock skew; the fixed-stride time-sharded
-    drivers fold the common-mode drift back into the stream consumption
-    (block-granular variable stride). A +0.05% skewed stream whose
-    cumulative drift (~80 samples) far exceeds the ±24 halo budget must
-    decode byte/event-identically to the unsharded bank — and the
-    carried pos must stay recentered instead of tripping the budget.
+    """Real streams carry clock skew; the fixed-length time-sharded
+    steps start every channel at its own carried pos, so the drift never
+    accumulates in the device carry. A skewed stream whose cumulative
+    drift (~50 samples) far exceeds a ±24 halo budget must decode
+    byte/event-identically to the unsharded bank — and the carried pos
+    must stay recentered instead of tripping the budget.
 
-    (Skew accrued WITHIN one device block must fit the halo: at the
-    default budget 24 and 72-century blocks that is ~160 ppm — real
-    SDR clocks are ±20 ppm. 150 ppm here is ~7x a typical SDR.)"""
+    (Skew accrued WITHIN one device block must fit the halo: at budget
+    24 and 72-century blocks that is ~160 ppm — real SDR clocks are
+    ±20 ppm. 150 ppm here is ~7x a typical SDR.)"""
     samples = _samples(21, n_frames=240, noise=30.0)
     skew = 1.5e-4  # 150 ppm: ~0.15 samples/century, ~11/block
     n = samples.shape[1]
@@ -317,7 +318,7 @@ def test_timesharded_bank_clock_skew_recentering(mesh):
     skewed = np.stack([np.interp(t, np.arange(n), samples[c])
                        for c in range(C)]).astype(np.float32)
 
-    bank_s, out_s, meta_s = _sharded_bank(mesh)
+    bank_s, out_s, meta_s = _sharded_bank(mesh, drift_budget=24)
     bank_p, out_p, meta_p = _plain_bank()
     for lo in range(0, skewed.shape[1], 8192):
         bank_s.push(skewed[:, lo:lo + 8192])
@@ -351,12 +352,12 @@ def test_timesharded_snapshot_restore_under_skew(mesh):
     skewed = np.stack([np.interp(t, np.arange(n), samples[c])
                        for c in range(C)]).astype(np.float32)
 
-    bank, outputs, metas = _sharded_bank(mesh)
+    bank, outputs, metas = _sharded_bank(mesh, drift_budget=24)
     half = (skewed.shape[1] // 2) // 512 * 512
     bank.push(skewed[:, :half])
     blob = bank.snapshot()
 
-    bank2, outputs2, metas2 = _sharded_bank(mesh)
+    bank2, outputs2, metas2 = _sharded_bank(mesh, drift_budget=24)
     bank2.restore(blob)
     pre = {c: len(outputs[c]) for c in outputs}
     bank.push(skewed[:, half:])

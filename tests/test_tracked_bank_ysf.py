@@ -2,10 +2,10 @@
 import numpy as np
 import pytest
 
-from digiham_tpu.pipeline import YsfPipeline
-from digiham_tpu.protocols.ysf import make_decoder
-from digiham_tpu.runtime.meta import PipelineMetaWriter
-from digiham_tpu.runtime.tracked_bank import TrackedChannelBank, YsfAdapter
+from digiham_jax.pipeline import YsfPipeline
+from digiham_jax.protocols.ysf import make_decoder
+from digiham_jax.runtime.meta import PipelineMetaWriter
+from digiham_jax.runtime.tracked_bank import TrackedChannelBank, YsfAdapter
 
 from ysf_synth import (header_frame, terminator_frame, v1_frame,
                        vd2_frame, vw_frame)

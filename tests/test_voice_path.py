@@ -7,9 +7,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from digiham_tpu.codec import DynamicMode, MbeSynthesizer, TableMode
-from digiham_tpu.codec.modes import ysf_mode_for
-from digiham_tpu.dsp.audio import DigitalVoiceState, digitalvoice_filter
+from digiham_jax.codec import DynamicMode, MbeSynthesizer, TableMode
+from digiham_jax.codec.modes import ysf_mode_for
+from digiham_jax.dsp.audio import DigitalVoiceState, digitalvoice_filter
 from test_codec import MockCodecServer
 
 from ysf_synth import terminator_frame, vd2_frame
@@ -29,7 +29,7 @@ class TestYsfVoicePath:
     def test_dn_stream_to_pcm(self):
         """YSF DN frames -> mode-byte-prefixed AMBE -> renegotiation to
         table 34 -> PCM out."""
-        from digiham_tpu.protocols.ysf import make_decoder
+        from digiham_jax.protocols.ysf import make_decoder
         frames = [vd2_frame(i, b"VOICEPATH ") for i in range(3)]
         frames.append(terminator_frame())
         stream = np.concatenate(frames)
@@ -64,7 +64,7 @@ class TestDmrVoicePath:
     def test_dmr_frames_to_pcm(self):
         """DMR voice payload (27B/frame = 3 AMBE frames of 9B) -> table 33
         codec -> PCM."""
-        from digiham_tpu.protocols.dmr import make_decoder
+        from digiham_jax.protocols.dmr import make_decoder
         payload = np.tile([1, 3, 0, 2], 27)
         frames = [voice_frame(s % 2, payload, sync=True) for s in range(6)]
         voice_bytes = make_decoder().process(np.concatenate(frames))
@@ -87,8 +87,8 @@ class TestTrackedBankVoicePath:
         """The full production chain: RF samples -> TrackedChannelBank
         (device pipeline + batched field decode) -> voice bytes ->
         MbeSynthesizer (table 33) -> PCM -> digitalvoice filter."""
-        from digiham_tpu.pipeline import DmrPipeline
-        from digiham_tpu.runtime.tracked_bank import TrackedChannelBank
+        from digiham_jax.pipeline import DmrPipeline
+        from digiham_jax.runtime.tracked_bank import TrackedChannelBank
 
         levels = np.array([1.0, 3.0, -1.0, -3.0]) / 3.0
         payload = np.tile([1, 3, 0, 2], 27)

@@ -2,13 +2,13 @@
 import numpy as np
 import pytest
 
-from digiham_tpu.protocols.ysf import make_decoder
-from digiham_tpu.protocols.ysf.fich import Fich, encode_fich
-from digiham_tpu.protocols.ysf.phases import (
+from digiham_jax.protocols.ysf import make_decoder
+from digiham_jax.protocols.ysf.fich import Fich, encode_fich
+from digiham_jax.protocols.ysf.phases import (
     decode_v2_voice,
     treat_ysf_string,
 )
-from digiham_tpu.runtime.meta import PipelineMetaWriter
+from digiham_jax.runtime.meta import PipelineMetaWriter
 
 from ysf_synth import (
     encode_v2_voice,

@@ -1,12 +1,12 @@
 """YSF frame synthesizer for tests: the TX inverse of the decoder."""
 import numpy as np
 
-from digiham_tpu.fec import interleave
-from digiham_tpu.fec.crc import crc16_ysf, bytes_to_bits_msb
-from digiham_tpu.fec.lfsr import ysf_whitening
-from digiham_tpu.fec.viterbi import conv_encode
-from digiham_tpu.protocols.ysf.fich import encode_fich
-from digiham_tpu.protocols.ysf.phases import (
+from digiham_jax.fec import interleave
+from digiham_jax.fec.crc import crc16_ysf, bytes_to_bits_msb
+from digiham_jax.fec.lfsr import ysf_whitening
+from digiham_jax.fec.viterbi import conv_encode
+from digiham_jax.protocols.ysf.fich import encode_fich
+from digiham_jax.protocols.ysf.phases import (
     FRAME_SIZE, FICH_SIZE, SYNC_SIZE, V2_VOICE_MAPPING, YSF_SYNC,
 )
 

@@ -1,17 +1,17 @@
-"""1-core CPU A/B vs the COMPILED REFERENCE chain (tunnel-independent).
+"""1-core CPU A/B vs the COMPILED REFERENCE chain.
 
 Times the reference's own binaries (tests/ref_harness: csdr-shimmed
 rrc_filter | gfsk_demodulator | dmr_decoder, the examples/dmr-decoder.sh
 chain from the RRC input down) against this framework's fused pipeline
 step running under XLA:CPU, both pinned to ONE core with taskset.
 
-Framing (docs/BASELINE-notes): this framework is TPU-native — the fused
-step does strictly MORE work per sample than the reference (dense sync
+Framing: this framework is built for an accelerator — the fused step
+does strictly MORE work per sample than the reference (dense sync
 correlation at every symbol offset and frame-field decode of every
 aligned window, vs the reference's decode-after-lock phase machine), and
-its shapes are chosen for the MXU, not for a scalar core. The per-core
-CPU number is published for honesty and context, not as the headline;
-the headline is Msamples/s/chip on TPU (bench.py).
+its shapes are chosen for wide batches, not for a scalar core. The
+per-core CPU number is context, not the headline; the headline is
+throughput on the GPU (bench.py).
 
 Prints one JSON line per row.
 """
@@ -106,7 +106,7 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 import jax; jax.config.update("jax_platforms", "cpu")
 import numpy as np, time, json
 import jax.numpy as jnp
-from digiham_tpu.pipeline import DmrPipeline
+from digiham_jax.pipeline import DmrPipeline
 C = {channels}
 pipe = DmrPipeline(channels=C, sps=10, n_centuries=8)
 L = 8 * (100 * 10 + 1) + 8
@@ -128,7 +128,7 @@ print(json.dumps(dict(msps=n / (time.perf_counter() - t0) / 1e6)))
     line = next(ln for ln in r.stdout.splitlines() if ln.startswith("{"))
     msps = json.loads(line)["msps"]
     return {
-        "side": "digiham_tpu (XLA:CPU)",
+        "side": "digiham_jax (XLA:CPU)",
         "chain": "fused RRC+demod+dense-sync+field-decode step",
         "cores": 1,
         "channels": channels,

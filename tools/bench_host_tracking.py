@@ -6,7 +6,7 @@ traffic (the oracle-fuzz generators — transmissions separated by noise
 gaps, so acquisition hunting is included) and reports host-side wall time
 with the device ``decode_fields`` calls timed and subtracted — i.e. the
 per-core cost of the host control plane when the field decode runs on
-the TPU. Also reports the isolated steady-state per-frame tracking cost
+the GPU. Also reports the isolated steady-state per-frame tracking cost
 (field_row + process_fields) for DMR.
 
 Usage: python tools/bench_host_tracking.py   (pins jax to CPU)
@@ -48,9 +48,9 @@ def _streams():
 def bench_bank(name, stream, rate):
     import jax
     import jax.numpy  # noqa: F401
-    from digiham_tpu.pipeline import (DmrPipeline, FskPipeline,
+    from digiham_jax.pipeline import (DmrPipeline, FskPipeline,
                                       NxdnPipeline, YsfPipeline)
-    from digiham_tpu.runtime.tracked_bank import TrackedChannelBank
+    from digiham_jax.runtime.tracked_bank import TrackedChannelBank
 
     if name == "dmr":
         pipe = DmrPipeline(channels=1, sps=10, n_centuries=2)
@@ -102,9 +102,9 @@ def dmr_steady_state_detail():
     """Isolated steady-state per-frame cost on frame-locked voice."""
     import jax.numpy as jnp
     from dmr_synth import data_frame, group_lc, voice_frame  # tests/
-    from digiham_tpu.protocols.dmr.components import DATA_TYPE_VOICE_LC
-    from digiham_tpu.protocols.dmr.phases import SyncPhase
-    from digiham_tpu.runtime.tracked_bank import DmrAdapter
+    from digiham_jax.protocols.dmr.components import DATA_TYPE_VOICE_LC
+    from digiham_jax.protocols.dmr.phases import SyncPhase
+    from digiham_jax.runtime.tracked_bank import DmrAdapter
 
     lc = group_lc(2300042, 2623317)
     payload = np.tile([1, 3, 0, 2], 27)
@@ -160,8 +160,8 @@ def bank_scaling(channels_list=(64, 256, 1024)):
     the host loop is O(channels) with no superlinear term."""
     import jax.numpy as jnp  # noqa: F401 — bank import needs jax ready
     from dmr_synth import voice_frame  # tests/
-    from digiham_tpu.pipeline import DmrPipeline
-    from digiham_tpu.runtime.tracked_bank import TrackedChannelBank
+    from digiham_jax.pipeline import DmrPipeline
+    from digiham_jax.runtime.tracked_bank import TrackedChannelBank
 
     payload = np.tile([1, 3, 0, 2], 27)
     frames = np.concatenate(

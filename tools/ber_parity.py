@@ -60,10 +60,10 @@ SNRS_DB = (4, 6, 8, 10, 12, 16, 20, 30)
 
 def our_chain_full(protocol, samples, chunk=16384):
     """Our full chain INCLUDING our RRC front end (use_rrc=True)."""
-    from digiham_tpu.pipeline import (DmrPipeline, FskPipeline,
+    from digiham_jax.pipeline import (DmrPipeline, FskPipeline,
                                       NxdnPipeline, YsfPipeline)
-    from digiham_tpu.runtime.meta import PipelineMetaWriter
-    from digiham_tpu.runtime.tracked_bank import (DmrAdapter,
+    from digiham_jax.runtime.meta import PipelineMetaWriter
+    from digiham_jax.runtime.tracked_bank import (DmrAdapter,
                                                   DstarAdapter,
                                                   NxdnAdapter,
                                                   PocsagAdapter,
@@ -118,9 +118,9 @@ def our_demod(protocol, samples):
     """Our front end only: our RRC (4FSK) + device demod block."""
     import jax.numpy as jnp
 
-    from digiham_tpu.dsp.demod import (demod_init, fsk_demod_block,
+    from digiham_jax.dsp.demod import (demod_init, fsk_demod_block,
                                        gfsk_demod_block)
-    from digiham_tpu.dsp.rrc import (NARROW_RRC, WIDE_RRC, RrcState,
+    from digiham_jax.dsp.rrc import (NARROW_RRC, WIDE_RRC, RrcState,
                                      rrc_filter_block)
 
     sps = {"dmr": 10, "ysf": 10, "nxdn": 20, "dstar": 10,

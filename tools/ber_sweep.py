@@ -3,7 +3,7 @@
 Sweeps AWGN levels over a synthesized DMR 4FSK channel and reports symbol
 error rate at the demod output and voice-frame success (bit-exact 27-byte
 payload) after the full chain — the "BER vs reference" north-star metric
-(BASELINE.md). Run on CPU or TPU.
+(BASELINE.md). Run on CPU or GPU.
 
 Usage: python tools/ber_sweep.py [channels]
 """
@@ -14,10 +14,10 @@ import jax.numpy as jnp
 
 sys.path.insert(0, "tests")
 
-from digiham_tpu.dsp.demod import demod_init, gfsk_demod_block
-from digiham_tpu.dsp.rrc import WIDE_RRC, RrcState, rrc_filter
-from digiham_tpu.protocols.dmr import make_decoder
-from digiham_tpu.protocols.dmr.phases import pack_dibits
+from digiham_jax.dsp.demod import demod_init, gfsk_demod_block
+from digiham_jax.dsp.rrc import WIDE_RRC, RrcState, rrc_filter
+from digiham_jax.protocols.dmr import make_decoder
+from digiham_jax.protocols.dmr.phases import pack_dibits
 
 from dmr_synth import voice_frame  # noqa: E402
 

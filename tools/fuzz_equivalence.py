@@ -1,7 +1,7 @@
 """Deep equivalence fuzzing against the compiled reference.
 
 Runs many random and corrupted-signal streams through both the reference
-harness and digiham_tpu's decoders, comparing payload + metadata
+harness and digiham_jax's decoders, comparing payload + metadata
 byte-for-byte. Any divergence is dumped to /tmp/fuzz_div_* for replay.
 
 Usage: python tools/fuzz_equivalence.py [seeds_per_case]
@@ -31,13 +31,13 @@ def run_ours(protocol, symbols, chunker=None):
     """chunker: optional rng; feeds the decoder in random-size chunks to
     exercise the streaming carry logic (the reference is fed all at once
     — outputs must be identical either way)."""
-    from digiham_tpu.runtime.meta import PipelineMetaWriter
+    from digiham_jax.runtime.meta import PipelineMetaWriter
     makers = {
-        "dmr": "digiham_tpu.protocols.dmr",
-        "ysf": "digiham_tpu.protocols.ysf",
-        "nxdn": "digiham_tpu.protocols.nxdn",
-        "dstar": "digiham_tpu.protocols.dstar",
-        "pocsag": "digiham_tpu.protocols.pocsag",
+        "dmr": "digiham_jax.protocols.dmr",
+        "ysf": "digiham_jax.protocols.ysf",
+        "nxdn": "digiham_jax.protocols.nxdn",
+        "dstar": "digiham_jax.protocols.dstar",
+        "pocsag": "digiham_jax.protocols.pocsag",
     }
     import importlib
     mod = importlib.import_module(makers[protocol])

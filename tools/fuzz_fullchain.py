@@ -51,10 +51,10 @@ def ref_chain(demod_args, protocol, samples):
 
 
 def our_chain(protocol, samples, chunk):
-    from digiham_tpu.pipeline import (DmrPipeline, FskPipeline,
+    from digiham_jax.pipeline import (DmrPipeline, FskPipeline,
                                       NxdnPipeline, YsfPipeline)
-    from digiham_tpu.runtime.meta import PipelineMetaWriter
-    from digiham_tpu.runtime.tracked_bank import (DstarAdapter,
+    from digiham_jax.runtime.meta import PipelineMetaWriter
+    from digiham_jax.runtime.tracked_bank import (DstarAdapter,
                                                   DmrAdapter,
                                                   NxdnAdapter,
                                                   PocsagAdapter,
@@ -179,7 +179,7 @@ def synth(protocol, rng):
 
 def is_precision_tie(proto, samples):
     """True when the divergence is a float-precision tie-break, not a
-    logic bug. Two axes, both inherent to a float32 TPU kernel:
+    logic bug. Two axes, both inherent to a float32 device kernel:
 
     1. timing loop: the reference uses C doubles
        (fsk_demodulator.cpp:55-66); if the f64 and f32 per-symbol
@@ -192,7 +192,7 @@ def is_precision_tie(proto, samples):
 
     Observed ~0.1% of heavy-impairment streams; zero events in all
     symbol-domain fuzzing and the golden DSP suite."""
-    from digiham_tpu.dsp.demod import FskDemodNp, GfskDemodNp
+    from digiham_jax.dsp.demod import FskDemodNp, GfskDemodNp
     sps = {"dmr": 10, "ysf": 10, "nxdn": 20, "dstar": 10,
            "pocsag": 40}[proto]
     if proto in ("dstar", "pocsag"):
@@ -206,7 +206,7 @@ def is_precision_tie(proto, samples):
     if bool((a[:n] != b[:n]).any()):
         return True  # timing-loop tie (f32 vs the reference's doubles)
 
-    # Second precision axis: the TPU kernel's f32 REDUCTION ORDER can
+    # Second precision axis: the device kernel's f32 REDUCTION ORDER can
     # differ from the reference's sequential f32 sums by ~1 ulp; at a
     # slicer boundary that flips exactly one symbol (slicing has no
     # feedback, so no cascade). Replay the device kernel, diff against
@@ -216,9 +216,9 @@ def is_precision_tie(proto, samples):
 
     import jax.numpy as jnp
 
-    from digiham_tpu.dsp.demod import demod_init, fsk_demod_block, \
+    from digiham_jax.dsp.demod import demod_init, fsk_demod_block, \
         gfsk_demod_block
-    from digiham_tpu.runtime.stream import SampleBuffer
+    from digiham_jax.runtime.stream import SampleBuffer
 
     ref = np.frombuffer(subprocess.run(
         [DSP] + DEMOD_ARGS[proto],

@@ -20,22 +20,23 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
 import numpy as np  # noqa: E402
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tests"))
 
-from digiham_tpu.parallel import make_mesh  # noqa: E402
-from digiham_tpu.parallel.streaming import TimeShardedPipeline  # noqa: E402
-from digiham_tpu.pipeline import (DmrPipeline, FskPipeline,  # noqa: E402
+from digiham_jax.parallel import make_mesh  # noqa: E402
+from digiham_jax.utils import enable_compilation_cache  # noqa: E402
+from digiham_jax.parallel.streaming import TimeShardedPipeline  # noqa: E402
+from digiham_jax.pipeline import (DmrPipeline, FskPipeline,  # noqa: E402
                                   NxdnPipeline, YsfPipeline)
-from digiham_tpu.runtime.meta import PipelineMetaWriter  # noqa: E402
-from digiham_tpu.runtime.tracked_bank import (  # noqa: E402
+from digiham_jax.runtime.meta import PipelineMetaWriter  # noqa: E402
+from digiham_jax.runtime.tracked_bank import (  # noqa: E402
     DstarAdapter, NxdnAdapter, PocsagAdapter, TimeShardedTrackedBank,
     TrackedChannelBank, YsfAdapter)
 from dmr_synth import voice_frame  # noqa: E402
 
+enable_compilation_cache()
 LEV = np.array([1.0, 3.0, -1.0, -3.0]) / 3
 C = 2
 

@@ -1,11 +1,10 @@
-"""Machine-classify hardware soak misses against the knife-edge classes.
+"""Machine-classify accelerator soak misses against the knife-edge classes.
 
-The MXU/VPU summation order on hardware differs from the XLA reduce
-order, which flips ~0.04% of knife-edge slicer decisions and ~1% of
-flat-variance-valley timing ties vs the envelope path
-(docs/ARCHITECTURE.md precision envelope). Round-4 VERDICT weak #6: a
-soak miss was attributed to those classes by narrative. This module does
-it by machine: it re-demodulates the divergent channel's exact sample
+The GPU demod kernel's summation order differs from the XLA reduce
+order, which can flip knife-edge slicer decisions and flat-variance-valley
+timing ties vs the envelope path (docs/ARCHITECTURE.md precision
+envelope). Rather than attribute a soak miss to those classes by
+narrative, this module does it by machine: it re-demodulates the divergent channel's exact sample
 stream through an INSTRUMENTED f32 host oracle (reference-faithful,
 dsp/demod.py) and checks whether the miss's symbol window actually
 contains a knife-edge condition:
@@ -28,7 +27,7 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from digiham_tpu.dsp.demod import FskDemodNp, GfskDemodNp  # noqa: E402
+from digiham_jax.dsp.demod import FskDemodNp, GfskDemodNp  # noqa: E402
 
 # Tolerances sized to the documented hardware flip rates: f32 sum-order
 # perturbations are O(1e-6) relative, so a decision within 1e-3 of its
